@@ -1,0 +1,51 @@
+"""The PyTorch port imports and renders with jax made unimportable."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None          # any 'import jax' now raises ImportError
+import numpy as np
+import topsy_tpu_torch
+from topsy_tpu.canvas import OffscreenCanvas
+vis = topsy_tpu_torch.test(2000, render_resolution=64, device="cpu",
+                           canvas_class=OffscreenCanvas)
+vis.show_status = False
+im = vis.get_sph_image()
+assert im.shape == (64, 64) and np.isfinite(im).all() and im.sum() > 0
+pres = vis.get_sph_presentation_image()
+assert pres.shape == (64, 64, 4) and pres.dtype == np.uint8
+loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+assert all(sys.modules[m] is None for m in loaded), loaded
+print("OK")
+"""
+
+
+def test_port_renders_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+@pytest.mark.parametrize("path", [
+    "topsy_tpu_torch", "chip_smoke.py"])
+def test_no_jax_import_in_port_sources(path):
+    full = os.path.join(ROOT, path)
+    files = ([full] if full.endswith(".py") else
+             [os.path.join(d, f) for d, _, fs in os.walk(full) for f in fs
+              if f.endswith(".py")])
+    assert files
+    for f in files:
+        with open(f) as fh:
+            for line in fh:
+                s = line.strip()
+                assert not s.startswith(("import jax", "from jax")), (f, s)

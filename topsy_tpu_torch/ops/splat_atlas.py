@@ -1,0 +1,342 @@
+"""The presorted splat path: feed, deposit, spill tiers, pyramid collapse.
+
+Counterpart of ``atlas_layout``, ``spill_pass`` (here ``spill_tiers``, which
+returns the two tiers' deposit operands), ``splat_atlas_fields`` and
+``collapse_atlas`` in ``topsy_tpu/ops/splat_atlas.py``.  Every pyramid level
+lives in one padded channel-major atlas (C, atlas_rows, atlas_cols); the
+feed (``splat_feed``) computes anchors, flags and coefficients, the deposit
+(``splat_accum``) accumulates each group into its window, and the spill
+tiers re-run the deposit for particles that did not fit: tier 2 over
+full-width windows in groups of G/8, tier 3 as one-particle groups — the
+reference's ``engine="pallas"`` semantics.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from topsy_tpu import config
+
+from . import splat_accum, splat_feed, splat_giant
+from .splat import (H_MAX, PyramidSpec, default_pyramid, exp2_int,
+                    levels_from_buckets, splat_coefficients)
+from .splat_accum import (COL_ALIGN, FULL_CLASS, PROFILE_COLS, SUBGROUPS,
+                          group_flags)
+
+GROUP = 512
+TIER3_PALLAS_MIN_GROUPS = 16384
+WINDOW_COLS = 256
+BAND = config.SPLAT_BAND_ROWS
+COL_PAD = config.SPLAT_ATLAS_COL_PAD
+ROW_PAD = config.SPLAT_ATLAS_PAD
+FOOT = 8.0
+#: straggler budget of spill tier 3 per launch
+T3_CAP = 1024
+#: window rows of the presorted path
+PRESORTED_WINDOW_ROWS = 96
+
+
+def atlas_layout(pyramid: PyramidSpec):
+    """Row offset of each level region in the atlas, and the atlas shape.
+    The width is rounded up to 128 columns as in the reference: it bounds
+    the column anchors ``c0``, so it is part of the semantics."""
+    row_offs = []
+    r = ROW_PAD
+    for res_l in pyramid.level_resolutions:
+        row_offs.append(r)
+        r += res_l + ROW_PAD
+    width = max(pyramid.resolution + 2 * COL_PAD, 384)
+    width = ((width + 127) // 128) * 128
+    return tuple(row_offs), r, width
+
+
+def _topk_desc_stable(values: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest values, ties to the lower index."""
+    _, order = torch.sort(values, descending=True, stable=True)
+    return order[:k]
+
+
+def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
+                n_spill, *, C, G, atlas_rows, atlas_cols, window_rows,
+                group_cap=None):
+    """The spill tiers' deposit operands (particles too sparse for their
+    group's window).
+
+    ay_s/ax_s/inv_h_s: (n_pad,); coef_s: (C, n_pad); spilled: (n_pad,)
+    bool; per_group_spill: (n_groups,) int; n_spill: 0-dim int tensor.
+    Returns (tier2, tier3, dropped): the keyword arguments of the two
+    ``accumulate_groups`` calls (tier 2: groups of G/8 over full-width
+    windows; tier 3: one-particle groups) and the dropped count as a 0-dim
+    int tensor.  Compaction is group-granular: the ``k_groups`` groups with
+    the most spills are gathered in layout order.  The tiers always run
+    (the reference skips them when nothing spilled; then every gathered
+    group here is inactive and ``dropped`` is 0, so the result is the same),
+    which keeps the frame free of host synchronisation."""
+    dev = ay_s.device
+    n_groups = per_group_spill.shape[0]
+    G_SPILL = max(16, G // 8)
+    cap = config.SPLAT_SPILL_GROUP_CAP if group_cap is None else group_cap
+    k_groups = min(n_groups, cap)
+    # the reference keeps its tier-2 group count a SUBGROUPS multiple; the
+    # rounding decides which groups are gathered, hence ``dropped``
+    k_groups = max(1, (k_groups * (G // G_SPILL)) // SUBGROUPS) \
+        * SUBGROUPS * G_SPILL // G
+    spill_cap = k_groups * G
+
+    top_idx = torch.sort(_topk_desc_stable(per_group_spill, k_groups)).values
+
+    def gather(arr):
+        return arr.reshape(n_groups, G)[top_idx].reshape(spill_cap)
+
+    valid = gather(spilled)
+    s_ay = gather(ay_s)
+    s_ax = gather(ax_s)
+    s_ih = gather(inv_h_s)
+    s_coef = torch.stack([torch.where(valid, gather(cc), 0.0)
+                          for cc in coef_s])                    # (C, cap)
+
+    n_sg = spill_cap // G_SPILL
+    ay2 = s_ay.reshape(n_sg, G_SPILL)
+    valid2 = valid.reshape(n_sg, G_SPILL)
+    ay2m = torch.where(valid2, ay2, torch.inf).amin(dim=1)
+    ay2m = torch.where(torch.isfinite(ay2m), ay2m, float(ROW_PAD))
+    w0_top = ((atlas_rows - window_rows) // BAND) * BAND
+    sw0 = torch.clamp(torch.floor((ay2m - FOOT) / BAND).to(torch.int32)
+                      * BAND, 0, w0_top).to(torch.int32)
+    sc0 = torch.zeros_like(sw0)
+
+    sw0_rep = sw0.repeat_interleave(G_SPILL).to(torch.float32)
+    fits2 = (s_ay + FOOT < sw0_rep + window_rows) & valid
+    s_coef_fit = torch.where(fits2, s_coef, 0.0)
+    straggler = (~fits2) & valid
+    n3 = straggler.sum()
+
+    sflags = group_flags(s_ih.reshape(n_sg, G_SPILL),
+                         s_coef_fit.reshape(C, n_sg, G_SPILL).permute(1, 2, 0),
+                         H_MAX)
+    common = dict(atlas_rows=atlas_rows, atlas_cols=atlas_cols, C=C,
+                  window_rows=window_rows)
+    tier2 = dict(ay_g=s_ay.reshape(n_sg, G_SPILL),
+                 ax_g=s_ax.reshape(n_sg, G_SPILL),
+                 ih_g=s_ih.reshape(n_sg, G_SPILL),
+                 coef_g=s_coef_fit.reshape(C, n_sg, G_SPILL).contiguous(),
+                 w0=sw0, c0=sc0, ce=sc0, flags=sflags, group=G_SPILL,
+                 window_cols=atlas_cols, **common)
+
+    # ---- tier 3: one-particle groups (fit by construction) ---------------
+    T3 = min(T3_CAP, spill_cap)
+    ar = torch.arange(spill_cap, device=dev)
+    # the first T3 stragglers in gathered order, then non-stragglers
+    idx3 = torch.sort(torch.where(straggler, ar, ar + spill_cap)).indices[:T3]
+    valid3 = straggler[idx3]
+    t_ay = s_ay[idx3]
+    t_ax = s_ax[idx3]
+    t_ih = s_ih[idx3]
+    t_coef = torch.where(valid3, s_coef[:, idx3], 0.0)          # (C, T3)
+    tw0_raw = torch.floor((t_ay - FOOT) / BAND).to(torch.int32) * BAND
+    tw0 = torch.clamp(tw0_raw, 0, w0_top).to(torch.int32)
+    ce_raw = torch.floor(t_ax - FOOT).to(torch.int32)
+    tc0 = torch.clamp((ce_raw // COL_ALIGN) * COL_ALIGN, 0,
+                      atlas_cols - WINDOW_COLS).to(torch.int32)
+    tce = torch.minimum(torch.maximum(ce_raw, tc0),
+                        tc0 + (WINDOW_COLS - PROFILE_COLS)).to(torch.int32)
+    # an anchor clipped at the atlas bottom leaves the splat centre below
+    # the window start: such stragglers take the full class (class 1 would
+    # truncate their deposit rows >= 32)
+    t_sizes = torch.where(tw0_raw != tw0, FULL_CLASS, 1).to(torch.int32)
+    tflags = group_flags(t_ih.reshape(T3, 1), t_coef.t().reshape(T3, 1, C),
+                         H_MAX, sizes=t_sizes)
+    tier3 = dict(ay_g=t_ay.reshape(T3, 1), ax_g=t_ax.reshape(T3, 1),
+                 ih_g=t_ih.reshape(T3, 1),
+                 coef_g=t_coef.reshape(C, T3, 1).contiguous(), w0=tw0,
+                 c0=tc0, ce=tce, flags=tflags, group=1,
+                 window_cols=WINDOW_COLS, **common)
+    not_gathered = n_spill - valid.sum()
+    return tier2, tier3, not_gathered + torch.clamp(n3 - T3, min=0)
+
+
+def _pergroup_table(group_buckets, px_per_world, pyramid: PyramidSpec,
+                    row_offs):
+    """(n_groups, 8) f32: [bucket, 2^-lev, 2^lev, row_off, res_l, 0, 0, 0]."""
+    dev = group_buckets.device
+    n_groups = group_buckets.shape[0]
+    lev = levels_from_buckets(group_buckets, px_per_world, pyramid.num_levels)
+    lev_l = lev.long()
+    zeros = torch.zeros((n_groups,), dtype=torch.float32, device=dev)
+    return torch.stack(
+        [group_buckets.to(torch.float32), exp2_int(-lev), exp2_int(lev),
+         torch.as_tensor(row_offs, dtype=torch.float32, device=dev)[lev_l],
+         torch.as_tensor(pyramid.level_resolutions, dtype=torch.float32,
+                         device=dev)[lev_l],
+         zeros, zeros, zeros], dim=1), lev
+
+
+def feed_params(matrix, px_per_world, g0, start, count, bucket_thresh):
+    """Host (params_f (16,) f32, sp_i (4,) i32) for ``splat_feed``."""
+    m = np.asarray(matrix, dtype=np.float32)
+    ppw = np.float32(px_per_world)
+    params_f = np.concatenate(
+        [m[0, :4], m[1, :4], m[2, :4],
+         np.array([ppw, np.float32(1.0) / ppw, 0.0, 0.0], np.float32)])
+    sp_i = np.array([g0, start, count, bucket_thresh], dtype=np.int32)
+    return params_f.astype(np.float32), sp_i
+
+
+def _as_host_matrix(matrix) -> np.ndarray:
+    if isinstance(matrix, torch.Tensor):
+        matrix = matrix.detach().cpu().numpy()
+    return np.asarray(matrix, dtype=np.float32)
+
+
+def feed_call(fields, values_cm, matrix, resolution, scale, group_buckets,
+              *, mask=None, pyramid: PyramidSpec | None = None,
+              depth_channel=False, piece=None, prange=None,
+              bucket_thresh=splat_giant.BUCKET_DISABLED):
+    """(args, kwargs) of the ``splat_feed`` call that renders one piece.
+    values_cm: (C_in, n_groups, GROUP) tensor; the rest as
+    ``splat_atlas_fields``."""
+    n_groups = fields[0].shape[0]
+    C_in = values_cm.shape[0]
+    if pyramid is None:
+        pyramid = default_pyramid(resolution)
+    row_offs, atlas_rows, atlas_cols = atlas_layout(pyramid)
+    px_per_world = resolution / (2.0 * scale)
+    pergroup, _ = _pergroup_table(group_buckets, px_per_world, pyramid,
+                                  row_offs)
+    g0, piece_groups = (0, n_groups) if piece is None else map(int, piece)
+    start, count = (0, 0) if prange is None else map(int, prange)
+    params_f, sp_i = feed_params(_as_host_matrix(matrix),
+                                 np.float32(px_per_world), g0, start, count,
+                                 int(bucket_thresh))
+    kwargs = dict(C_in=C_in, depth_channel=depth_channel,
+                  resolution=resolution, atlas_rows=atlas_rows,
+                  atlas_cols=atlas_cols, window_rows=PRESORTED_WINDOW_ROWS,
+                  band=BAND, col_pad=float(COL_PAD), foot=FOOT,
+                  piece_groups=piece_groups, ranged=prange is not None,
+                  has_mask=mask is not None,
+                  sentinel_ay=float(atlas_rows - ROW_PAD + FOOT + 2.0))
+    args = (fields, values_cm, pergroup, params_f, sp_i,
+            None if mask is None else mask.contiguous())
+    return args, kwargs
+
+
+def deposit_calls(feed_out, *, C, G, atlas_rows, atlas_cols,
+                  window_rows=PRESORTED_WINDOW_ROWS, spill_group_cap=None):
+    """The keyword arguments of the three ``accumulate_groups`` calls that
+    follow a feed — the main pass, spill tier 2 and spill tier 3 — and the
+    piece's dropped count (0-dim int tensor)."""
+    ay, ax, ih, cfit, cspill, w0, c0, ce, flags, nspill = feed_out
+    main = dict(ay_g=ay, ax_g=ax, ih_g=ih, coef_g=cfit, w0=w0, c0=c0, ce=ce,
+                flags=flags, atlas_rows=atlas_rows, atlas_cols=atlas_cols,
+                C=C, group=G, window_rows=window_rows)
+    chans = cspill.reshape(C, -1)
+    spilled = torch.abs(chans).sum(dim=0) > 0.0
+    tier2, tier3, dropped = spill_tiers(
+        ay.reshape(-1), ax.reshape(-1), ih.reshape(-1), chans, spilled,
+        nspill, nspill.sum(), C=C, G=G, atlas_rows=atlas_rows,
+        atlas_cols=atlas_cols, window_rows=window_rows,
+        group_cap=spill_group_cap)
+    return main, tier2, tier3, dropped
+
+
+def splat_atlas_fields(fields, values_cm, matrix, resolution, scale,
+                       group_buckets, mask=None,
+                       pyramid: PyramidSpec | None = None,
+                       depth_channel=False, piece=None, prange=None,
+                       giants="auto", spill_group_cap=None):
+    """The presorted splat path over the transposed field layout.
+
+    fields: (x, y, z, h) each (n_groups, GROUP) f32; values_cm: (C_in,
+    n_groups, GROUP) f32 (or a C_in-sequence of (n_groups, GROUP));
+    group_buckets: (n_groups,) int32; mask: optional (n_groups, GROUP) f32
+    cull mask (>0 keeps); matrix: (4, 4) world->clip (host); scale: the
+    viewport half-width (a numpy float32 keeps the reference's float32
+    arithmetic for px_per_world); piece: optional (g0, piece_groups);
+    prange: optional (start, count) of global slots; giants: 'auto', 'none'
+    or a smoothing-bucket threshold.
+
+    Returns (image (res, res, C), dropped as a 0-dim int tensor)."""
+    n_groups, G = fields[0].shape
+    dev = fields[0].device
+    if isinstance(values_cm, (list, tuple)):
+        values_cm = torch.stack(list(values_cm))
+    C_in = values_cm.shape[0]
+    C = C_in + (1 if depth_channel else 0)
+    if pyramid is None:
+        pyramid = default_pyramid(resolution)
+    _, atlas_rows, atlas_cols = atlas_layout(pyramid)
+    matrix = _as_host_matrix(matrix)
+
+    giant_args = None
+    if giants == "auto":
+        # the flat per-particle view, gated like the kernel (piece and
+        # range) so a piece loop deposits each giant exactly once
+        px_per_world = resolution / (2.0 * scale)
+        lev = levels_from_buckets(group_buckets, px_per_world,
+                                  pyramid.num_levels)
+        ps_flat = torch.stack([f.reshape(-1) for f in fields], dim=1)
+        vals_flat = values_cm.reshape(C_in, -1).t()
+        lev_flat = lev[:, None].expand(n_groups, G).reshape(-1)
+        emask = (mask > 0.0).reshape(-1) if mask is not None else None
+        slot_ids = torch.arange(n_groups * G, device=dev)
+        gate = None
+        if piece is not None:
+            gids = slot_ids // G
+            gate = (gids >= int(piece[0])) & (gids < int(piece[0])
+                                               + int(piece[1]))
+        if prange is not None:
+            pr = ((slot_ids >= int(prange[0]))
+                  & (slot_ids < int(prange[0]) + int(prange[1])))
+            gate = pr if gate is None else gate & pr
+        if gate is not None:
+            emask = gate if emask is None else emask & gate
+        parts = splat_coefficients(ps_flat, vals_flat, matrix, resolution,
+                                   scale, pyramid, emask, mode="lowrank",
+                                   depth_channel=depth_channel,
+                                   level_override=lev_flat)
+        gidx, gvalid, excluded = splat_giant.select_giants_topk(
+            parts["giant"], parts["h_px"], splat_giant.CAP)
+        giant_args = (parts["cy_fine"][gidx], parts["cx_fine"][gidx],
+                      parts["h_px"][gidx],
+                      parts["coef_giant"][gidx] * gvalid[:, None])
+        keep = torch.where(excluded, 0.0, 1.0).reshape(n_groups, G)
+        mask = keep if mask is None else mask * keep
+        bucket_thresh = splat_giant.BUCKET_DISABLED
+    elif giants == "none":
+        bucket_thresh = splat_giant.BUCKET_DISABLED
+    else:
+        bucket_thresh = int(giants)
+
+    args, kwargs = feed_call(fields, values_cm, matrix, resolution, scale,
+                             group_buckets, mask=mask, pyramid=pyramid,
+                             depth_channel=depth_channel, piece=piece,
+                             prange=prange, bucket_thresh=bucket_thresh)
+    feed_out = splat_feed.splat_feed(*args, **kwargs)
+    main, tier2, tier3, dropped = deposit_calls(
+        feed_out, C=C, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols,
+        spill_group_cap=spill_group_cap)
+    atlas = splat_accum.accumulate_groups(**main)
+    splat_accum.accumulate_groups(**tier2, atlas0=atlas)
+    splat_accum.accumulate_groups(**tier3, atlas0=atlas)
+    image = collapse_atlas(atlas, pyramid)
+    if giant_args is not None:
+        image = image + splat_giant.giant_image(*giant_args, resolution)
+    return image, dropped
+
+
+def collapse_atlas(atlas: torch.Tensor, pyramid: PyramidSpec) -> torch.Tensor:
+    """Crop levels from the channel-major atlas, upsample coarse->fine, sum,
+    and return the image as (res, res, C)."""
+    from .composite import upsample2x_kind_cm
+    row_offs, _, _ = atlas_layout(pyramid)
+    levels = []
+    for l, res_l in enumerate(pyramid.level_resolutions):
+        r0 = row_offs[l]
+        levels.append(atlas[:, r0:r0 + res_l, COL_PAD:COL_PAD + res_l])
+    out = levels[-1]
+    for l in range(pyramid.num_levels - 2, -1, -1):
+        target = pyramid.level_resolutions[l]
+        up = upsample2x_kind_cm(out, config.PYRAMID_COLLAPSE_FILTER)
+        out = levels[l] + up[:, :target, :target]
+    return out.permute(1, 2, 0)

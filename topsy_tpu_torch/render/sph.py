@@ -1,0 +1,226 @@
+"""The SPH renderer: the presorted EXPORT render loop.
+
+Counterpart of ``SPHRenderer`` in ``topsy_tpu/render/sph.py`` for the
+EXPORT path: ``render(DrawReason.EXPORT)`` plans the exact giant layer
+(``_prepare_giants``), then renders the presorted snapshot through
+``splat_atlas_fields`` in pieces of at most ``config.SPLAT_FEED_LAUNCH_CAP``
+particles and sums them.  ``get_image()`` returns the raw (mass, mass *
+quantity) framebuffer scaled by the photometric mass factor.  The
+interactive LOD path (CHANGE / REFINE frames) is ROADMAP item M9.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from topsy_tpu import config
+from topsy_tpu.camera import world_to_clip_matrix
+from topsy_tpu.drawreason import DrawReason
+
+from ..ops import splat, splat_atlas, splat_giant
+from ..util import TimeDeviceOperation
+from .store import ParticleStore
+
+logger = logging.getLogger(__name__)
+
+
+def _render_giant_layer(pos_smooth, values, buckets, cell_ids, cell_table,
+                        matrix, scale, *, resolution, depth_channel):
+    """The per-frame exact dense layer over the store's candidate pool."""
+    pyramid = splat_atlas.default_pyramid(resolution)
+    px_per_world = resolution / (2.0 * scale)
+    lev = splat.levels_from_buckets(buckets, px_per_world, pyramid.num_levels)
+    mask = cell_table[cell_ids.long()]
+    parts = splat.splat_coefficients(pos_smooth, values, matrix, resolution,
+                                     scale, pyramid, mask, mode="lowrank",
+                                     depth_channel=depth_channel,
+                                     level_override=lev)
+    return splat_giant.giant_image(parts["cy_fine"], parts["cx_fine"],
+                                   parts["h_px"], parts["coef_giant"],
+                                   resolution)
+
+
+class SPHRenderer:
+    """Density / mass-weighted-quantity renderer (2 channels)."""
+
+    _buffer_name = "mass_and_quantity"
+    _depth_channel = False
+
+    def __init__(self, store: ParticleStore, render_progression,
+                 resolution: int):
+        self._store = store
+        self._resolution = resolution
+        self._render_progression = render_progression
+        self._render_timer = TimeDeviceOperation(
+            config.GPU_TIMING_SMOOTH_WINDOW, device=store.device)
+
+        self.scale = config.DEFAULT_SCALE
+        self.rotation_matrix = np.eye(3)
+        self.position_offset = np.zeros(3)
+        self.has_rendered = False
+        self.last_render_mass_scale = 1.0
+        self.last_render_fps = 0.0
+
+        self._image = None
+        self._giant_image = None
+        self._giant_bucket = None
+        self._dropped_splats = None
+        self._cell_table = store.cell_mask_table(None)
+        self._cell_table_generation = None
+        self._fields_mask = None
+
+    def invalidate(self, draw_reason=DrawReason.CHANGE):
+        if draw_reason not in (DrawReason.REFINE,
+                               DrawReason.PRESENTATION_CHANGE):
+            self.has_rendered = False
+
+    def get_output_image(self) -> torch.Tensor:
+        """The raw framebuffer (device tensor), the exact giant layer folded
+        in divided by the mass scale factor."""
+        if self._giant_image is None:
+            return self._image
+        ms = self.last_render_mass_scale
+        return self._image + self._giant_image * (1.0 / ms if ms > 0 else 1.0)
+
+    def get_image(self) -> np.ndarray:
+        """Raw SPH map as numpy, photometrically rescaled."""
+        return self._get_image_unscaled() * self.last_render_mass_scale
+
+    def _get_image_unscaled(self) -> np.ndarray:
+        if not self.has_rendered:
+            logger.info("Triggering export-quality render (no render yet)")
+            self.render(DrawReason.EXPORT)
+        return self.get_output_image().cpu().numpy()
+
+    def get_image_device(self) -> torch.Tensor:
+        """Raw SPH map as a device tensor, photometrically rescaled."""
+        if not self.has_rendered:
+            self.render(DrawReason.EXPORT)
+        return self.get_output_image() * self.last_render_mass_scale
+
+    # -- render loop -------------------------------------------------------------
+
+    def render(self, draw_reason=DrawReason.CHANGE):
+        if draw_reason == DrawReason.PRESENTATION_CHANGE:
+            return
+        if draw_reason != DrawReason.EXPORT:
+            raise NotImplementedError(
+                f"{draw_reason}: the PyTorch port renders EXPORT frames only; "
+                "the interactive LOD path is ROADMAP item M9")
+        prog = self._render_progression
+        prog.select_sphere(-np.asarray(self.position_offset), self.scale * 1.2)
+        self._refresh_cell_table()
+
+        matrix = self._matrix().astype(np.float32)
+        scale = np.float32(self.scale)
+        prog.start_frame(draw_reason)
+        self._render_presorted(matrix, scale, first_block=True)
+        prog.mark_all_rendered(self._render_timer.total_time_in_frame())
+        self._finish_frame(prog)
+
+    def _finish_frame(self, prog):
+        """Close an EXPORT frame: barrier-free, so its enqueue-only timing
+        is discarded rather than fed to the fps running mean."""
+        self._render_timer.end_frame(record=False)
+        self.last_render_mass_scale = prog.end_frame_get_scalefactor()
+        mean = self._render_timer.running_mean_duration
+        self.last_render_fps = 1.0 / mean if mean > 0 else 0.0
+        self.has_rendered = True
+
+    def _prepare_giants(self, matrix, scale):
+        """Per-frame giant planning: sets the exclusion bucket threshold and
+        the exact dense giant layer (or None)."""
+        store = self._store
+        num_levels = splat_atlas.default_pyramid(self._resolution).num_levels
+        size, b_thresh = splat_giant.giant_plan(
+            store.giant_meta(), self._resolution, float(self.scale),
+            num_levels)
+        self._giant_bucket = b_thresh
+        if size == 0:
+            self._giant_image = None
+            return
+        with self._render_timer:
+            cand = store.giant_candidates(size)
+            self._giant_image = _render_giant_layer(
+                cand["pos"], store.giant_values_for(self._buffer_name, size),
+                cand["buckets"], cand["cell_ids"], self._cell_table, matrix,
+                scale, resolution=self._resolution,
+                depth_channel=self._depth_channel)
+
+    def _render_presorted(self, matrix, scale, first_block: bool):
+        self._store.ensure_presorted()
+        self._prepare_giants(matrix, scale)
+        self._render_presorted_fields(matrix, scale, first_block)
+
+    def _feed_cull_mask(self):
+        """(n_groups, pad_group) f32 cull mask, rebuilt only when the cell
+        selection changes; None without culling."""
+        prog = self._render_progression
+        if prog.get_selected_cell_mask() is None:
+            self._fields_mask = None
+            return None
+        store = self._store
+        gen = getattr(prog, "selection_generation", None)
+        if self._fields_mask is None or self._fields_mask[0] != gen:
+            G = store.presorted_layout.pad_group
+            mask = self._cell_table[store.cell_ids_presorted.long()].to(
+                torch.float32).reshape(store.n_presorted // G, G)
+            self._fields_mask = (gen, mask)
+        return self._fields_mask[1]
+
+    def pieces(self) -> list:
+        """The ``piece`` argument of each ``splat_atlas_fields`` launch of an
+        EXPORT frame: ``[None]`` when one launch covers every group, else
+        ``(g0, piece_groups)`` per launch of at most
+        ``config.SPLAT_FEED_LAUNCH_CAP`` particles."""
+        store = self._store
+        store.ensure_presorted()
+        G = store.presorted_layout.pad_group
+        ng = store.n_presorted // G
+        piece_g = max(8, min(ng, config.SPLAT_FEED_LAUNCH_CAP // G))
+        if piece_g >= ng:
+            return [None]
+        return [(g0, min(piece_g, ng - g0)) for g0 in range(0, ng, piece_g)]
+
+    def _render_presorted_fields(self, matrix, scale, first_block: bool):
+        """Sort-free EXPORT: the piece loop over group offsets.  Each piece
+        launch has its own spill budget, so the piecing decides ``dropped``
+        as in the reference."""
+        store = self._store
+        fields = store.presorted_fields()
+        values_cm = store.presorted_values_cm_for(self._buffer_name)
+        gb = store.presorted_group_buckets
+        mask = self._feed_cull_mask()
+        for piece in self.pieces():
+            with self._render_timer:
+                im, dropped = splat_atlas.splat_atlas_fields(
+                    fields, values_cm, matrix, self._resolution, scale, gb,
+                    mask=mask, depth_channel=self._depth_channel,
+                    piece=piece, giants=self._giant_bucket)
+                self._dropped_splats = dropped
+                if first_block:
+                    self._image = im
+                    first_block = False
+                else:
+                    self._image = self._image + im
+
+    @property
+    def last_dropped_splats(self) -> int:
+        """Splats dropped by the bounded spill tiers in the last piece."""
+        d = self._dropped_splats
+        return 0 if d is None else int(d.item())
+
+    def _matrix(self) -> np.ndarray:
+        return world_to_clip_matrix(self.rotation_matrix, self.position_offset,
+                                    self.scale)
+
+    def _refresh_cell_table(self):
+        prog = self._render_progression
+        gen = getattr(prog, "selection_generation", None)
+        if gen != self._cell_table_generation or self._cell_table is None:
+            mask = prog.get_selected_cell_mask()
+            self._cell_table = self._store.cell_mask_table(mask)
+            self._cell_table_generation = gen

@@ -1,0 +1,276 @@
+"""The Visualizer: loader, store, renderer, colormap, overlays and canvas.
+
+Counterpart of ``VisualizerBase`` in ``topsy_tpu/visualizer.py`` for the
+univariate EXPORT path: ``get_sph_image``, ``get_sph_presentation_image``,
+``get_presentation_image`` and ``draw(DrawReason.EXPORT, target=...)``,
+with the ``scale`` / ``rotation_matrix`` / ``position_offset`` /
+``quantity_name`` properties.  The device is explicit: ``device="cuda"``
+(the default) needs a GPU and raises without one; tests pass ``"cpu"``.
+The canvas and overlays are the reference's jax-free classes; the colorbar
+(which needs matplotlib) is built on first use.  ``OffscreenCanvas`` and
+``DrawReason`` are re-exported here for callers of the port.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from topsy_tpu import config
+from topsy_tpu.canvas import OffscreenCanvas
+from topsy_tpu.drawreason import DrawReason
+from topsy_tpu.overlays.scalebar import ScalebarOverlay
+from topsy_tpu.overlays.text import TextOverlay
+
+from .color import ColormapHolder
+from .color.maps import fit_to_window
+from .loaders import AbstractDataLoader, TestDataLoader
+from .render import sph
+from .render.store import ParticleStore
+
+logger = logging.getLogger(__name__)
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device for ``device``; a CUDA device must exist (there is
+    no silent move to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but no CUDA device is available; "
+                           "pass device='cpu' to render on the CPU")
+    return dev
+
+
+class VisualizerBase:
+    show_status = True
+
+    def __init__(self, data_loader_class=TestDataLoader, data_loader_args=(),
+                 data_loader_kwargs=None, *,
+                 render_resolution=config.DEFAULT_RESOLUTION,
+                 periodic_tiling=False,
+                 colormap_name=config.DEFAULT_COLORMAP,
+                 canvas_class=None,
+                 render_mode="univariate",
+                 device="cuda"):
+        if render_mode not in (None, "univariate"):
+            raise NotImplementedError(
+                f"render_mode {render_mode!r}: the PyTorch port renders "
+                "'univariate' only (ROADMAP items M10, M11)")
+        if periodic_tiling:
+            raise NotImplementedError("periodic tiling is ROADMAP item M12")
+        self.device = resolve_device(device)
+        self._render_resolution = render_resolution
+        self._colorbar = None
+        self._colorbar_wanted = False
+        self._sph = None
+        self._colormap: ColormapHolder | None = None
+        self.show_colorbar = True
+        self.show_scalebar = True
+        self.last_frame: np.ndarray | None = None
+
+        if canvas_class is None:
+            canvas_class = OffscreenCanvas
+        self.canvas = canvas_class(visualizer=self, title="topsy_tpu_torch")
+
+        self.data_loader: AbstractDataLoader = data_loader_class(
+            *data_loader_args, **(data_loader_kwargs or {}))
+        self.store = ParticleStore(self.data_loader, device=self.device)
+
+        self._initialize_overlays()
+        self._initialize_sph_and_colormap_and_bar(colormap_name)
+
+    # -- construction helpers ---------------------------------------------------
+
+    def _initialize_overlays(self):
+        self._status = TextOverlay(self, "topsy_tpu_torch", (-0.9, 0.9), 40,
+                                   color=(1, 1, 1, 1))
+        self._scalebar = ScalebarOverlay(self)
+
+    def _initialize_sph_and_colormap_and_bar(self, colormap_name=None):
+        if self._sph is not None:
+            old_rotation = self._sph.rotation_matrix
+            old_position = self._sph.position_offset
+            old_scale = self._sph.scale
+        else:
+            old_rotation = old_position = old_scale = None
+        progression = self.data_loader.get_render_progression()
+        self._sph = sph.SPHRenderer(self.store, progression,
+                                    self._render_resolution)
+        self.reset_view(rotation_matrix=old_rotation,
+                        position_offset=old_position, scale=old_scale)
+        self.invalidate()
+
+        if colormap_name is None and self._colormap is not None:
+            colormap_name = self._colormap.get_parameter("colormap_name")
+        if colormap_name is None:
+            colormap_name = config.DEFAULT_COLORMAP
+        self._colormap = ColormapHolder()
+        self._colormap.update_parameters({"colormap_name": colormap_name})
+        self._initialize_colormap_and_bar()
+
+    def _initialize_colormap_and_bar(self):
+        params = {"weighted_average": self.quantity_name is not None,
+                  "type": "density"}
+        changed_type = self._colormap.update_parameters(params)
+        params = self._colormap.get_parameters()
+        if (changed_type or params.get("vmin") is None
+                or params.get("vmax") is None):
+            logger.info("Autoranging colormap parameters")
+            self._colormap.autorange(self._sph.get_image_device())
+        self._colorbar = None
+        self._colorbar_wanted = True
+
+    def _get_colorbar_label(self):
+        label = self.data_loader.get_quantity_label(self.quantity_name)
+        if self._colormap.get_parameter("log"):
+            label = r"$\log_{10}$ " + label
+        return label
+
+    def _colorbar_overlay(self):
+        if self._colorbar is None and self._colorbar_wanted:
+            from topsy_tpu.overlays.colorbar import ColorbarOverlay
+            params = self._colormap.get_parameters()
+            self._colorbar = ColorbarOverlay(self, params["vmin"],
+                                             params["vmax"],
+                                             params["colormap_name"],
+                                             self._get_colorbar_label())
+        return self._colorbar
+
+    # -- properties --------------------------------------------------------------
+
+    @property
+    def colormap(self) -> ColormapHolder:
+        return self._colormap
+
+    @property
+    def rotation_matrix(self):
+        return self._sph.rotation_matrix
+
+    @rotation_matrix.setter
+    def rotation_matrix(self, value):
+        self._sph.rotation_matrix = value
+        self.invalidate()
+
+    @property
+    def position_offset(self):
+        return self._sph.position_offset
+
+    @position_offset.setter
+    def position_offset(self, value):
+        self._sph.position_offset = value
+        self.invalidate()
+
+    @property
+    def scale(self):
+        """Viewport half-width in world units."""
+        return self._sph.scale
+
+    @scale.setter
+    def scale(self, value):
+        self._sph.scale = value
+        self.invalidate()
+
+    @property
+    def quantity_name(self):
+        return self.store.quantity_name
+
+    @quantity_name.setter
+    def quantity_name(self, value):
+        if value == self.store.quantity_name:
+            return
+        if value is not None:
+            try:
+                self.data_loader.get_named_quantity(value)
+            except Exception as e:
+                raise ValueError(
+                    f"Unable to get quantity named '{value}'") from e
+        self.store.quantity_name = value
+        self.invalidate(DrawReason.CHANGE)
+        self._colormap.update_parameters({"vmin": None, "vmax": None,
+                                          "log": None})
+        self._initialize_colormap_and_bar()
+
+    # -- view manipulation ---------------------------------------------------------
+
+    def reset_view(self, rotation_matrix=None, position_offset=None,
+                   scale=None):
+        if rotation_matrix is None:
+            rotation_matrix = np.eye(3)
+        if position_offset is None:
+            position_offset = -self.data_loader.get_initial_center()
+        if scale is None:
+            scale = self.data_loader.get_initial_view_width()
+        self._sph.rotation_matrix = rotation_matrix
+        self._sph.scale = scale
+        self._sph.position_offset = position_offset
+
+    def invalidate(self, reason=DrawReason.CHANGE):
+        if self._sph is None:
+            return
+        self._sph.invalidate(reason)
+        self.canvas.request_draw(lambda: self.draw(reason))
+
+    def colormap_autorange(self):
+        self._colormap.autorange(self._sph.get_image_device())
+        self.invalidate(DrawReason.PRESENTATION_CHANGE)
+
+    # -- drawing --------------------------------------------------------------------
+
+    def render_sph(self, draw_reason=DrawReason.CHANGE):
+        self._sph.render(draw_reason)
+
+    def draw(self, reason, target=None):
+        """Render (if needed) and compose the presentation frame (RGBA
+        uint8), stored as ``self.last_frame`` and handed to the canvas.
+        ``target``: optional (width, height), defaults to the canvas size."""
+        if self._colormap is None:
+            return None
+        if target is None:
+            width, height = self.canvas.width_physical, self.canvas.height_physical
+        else:
+            width, height = target
+        self.render_sph(reason)
+        frame = self._compose_presentation(width, height)
+        self.last_frame = frame
+        if hasattr(self.canvas, "present_frame"):
+            self.canvas.present_frame(frame)
+        return frame
+
+    def _compose_presentation(self, width, height) -> np.ndarray:
+        rgba = self._colormap.to_rgba(self._sph.get_output_image(),
+                                      self._sph.last_render_mass_scale)
+        img = fit_to_window(rgba, width, height).cpu().numpy().astype(
+            np.float32)
+        img[..., 3] = 1.0
+        if self.show_colorbar and self._colorbar_overlay() is not None:
+            self._colorbar.composite(img)
+        if self.show_scalebar:
+            self._scalebar.composite(img)
+        if self.show_status:
+            self._status.composite(img)
+        return (np.clip(img, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
+
+    # -- image access ----------------------------------------------------------------
+
+    def get_sph_image(self) -> np.ndarray:
+        """Logical SPH content (no colormap)."""
+        return self._colormap.sph_raw_output_to_content(
+            np.asarray(self._sph.get_image()))
+
+    def get_sph_presentation_image(self) -> np.ndarray:
+        """Colormapped SPH image, no overlays, (res, res, 4) uint8."""
+        self.render_sph(DrawReason.EXPORT)
+        rgba = self._colormap.to_rgba(self._sph.get_output_image(),
+                                      self._sph.last_render_mass_scale)
+        rgba = rgba.cpu().numpy()
+        return (np.clip(rgba, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
+
+    def get_presentation_image(self, resolution=(640, 480)) -> np.ndarray:
+        """Full presentation frame with overlays at the given size."""
+        return self.draw(DrawReason.EXPORT, target=resolution)
+
+
+class Visualizer(VisualizerBase):
+    pass
