@@ -3,19 +3,29 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from this checkout (the Triton feed
-kernel K1 and the CUDA deposit kernel K2, into build/torch_kernels/), builds
-the 2^24-particle synthetic snapshot at 1024x1024 with the (density,
-mass * quantity) channels — the scene bench.py renders — through
-``Visualizer(..., device="cuda")``, holds each kernel against its plain
-PyTorch version on the card at the shapes the EXPORT path gives it (every
-piece of the renderer's piece loop), drives the EXPORT path (warm-up and
-timed frames, the SPH image and the presentation image), checks the image
-against the port's scatter ground truth, and prints:
+kernel K1, the CUDA deposit kernel K2 and the CUDA z-buffer kernel K3, into
+build/torch_kernels/; the host presort's native library into
+build/torch_native/), builds the 2^24-particle synthetic snapshot at
+1024x1024 with the (density, mass * quantity) channels — the scene bench.py
+renders — through ``Visualizer(..., device="cuda")``, holds K1 and K2
+against their plain PyTorch versions on the card at the shapes the EXPORT
+path gives them (every piece of the renderer's piece loop), drives the
+univariate EXPORT path (warm-up and timed frames, the SPH image and the
+presentation image) and checks the image against the port's scatter ground
+truth.  Then it switches the same Visualizer to the surface mode and, at
+the default density cut and at the lowest one (every particle, much of the
+image covered), holds K3 bit-identical to its plain version on every K3
+call of one surface EXPORT frame (plus forced stragglers), drives the
+surface EXPORT path and checks its (value, depth) image against the port's
+scatter-max ground truth.  It prints:
 
 * the card's name and power limit (nvidia-smi);
-* one ``{"kernels": [...]}`` JSON line: per kernel its launches during the
-  EXPORT frames, its largest difference from the plain version, and the
-  kernel's and the plain version's time at the first piece's shapes;
+* one ``{"kernels": [...]}`` JSON line: per kernel its launches during its
+  path's EXPORT frames, its largest difference from the plain version, the
+  kernel's and the plain version's time, the bound (the least time the
+  card could take for the same work: bytes over 3.35 TB/s or operations
+  over the peak rate of their type, whichever is larger) and the library
+  call's time (null: no single PyTorch call computes any of the three);
 * last, ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure, so the script exits nonzero and prints no
@@ -33,6 +43,27 @@ import time
 N_PARTICLES = 1 << 24
 RESOLUTION = 1024
 FRAMES = 5
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# float32 operations of K3's work (a fused multiply-add counts 2): dy, dy^2
+# per particle and footprint row and dx, dx^2 per particle and footprint
+# column; the fused s = dy^2 + dx^2 and t = 4 - s ih^2 per fragment (a
+# pixel of the class rectangle inside a valid particle's footprint); the
+# square root, the fused depth z + k h and the winner comparison per hit
+# (a fragment with t > 0)
+K3_OPS_PER_LINE = 2
+K3_OPS_PER_FRAGMENT = 4
+K3_OPS_PER_HIT = 4
+# float32 operations of K1 per particle slot: projection (3 fused rows,
+# 18), level and norm polynomial (degree 12, 24), anchors, fits and
+# coefficients (about 18)
+K1_OPS_PER_SLOT = 60
+# the surface frames: the default density cut (the 50th percentile) and
+# the lowest one, which keeps every particle and covers much of the image
+SURFACE_CUTS = (("cut50", 50.0), ("cut0", 0.0))
 
 
 def fail(msg: str):
@@ -63,6 +94,92 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_work(kw):
+    """(bytes, bf16 FLOP) of one K2 call: every input read once, the atlas
+    read and written once; 2 (C rows_eval) cols_eval (2 G) per active
+    group."""
+    from topsy_tpu_torch.ops import splat_accum as sa
+    flags = kw["flags"].cpu().numpy()
+    C, G = kw["C"], kw["group"]
+    n = flags.shape[0]
+    win = kw.get("window_cols", sa.WINDOW_COLS)
+    prof = sa.PROFILE_COLS if win == sa.WINDOW_COLS else win
+    rolled = prof != win
+    kind, sz = flags // 4, flags % 4
+    ops = 0.0
+    for k in range(1, 5):
+        for c in range(4):
+            cnt = int(((kind == k) & (sz == c)).sum())
+            if not cnt:
+                continue
+            cls = c if rolled and k in (1, 2) else sa.FULL_CLASS
+            r, w = sa._extents(cls, kw["window_rows"], prof)
+            ops += cnt * 2.0 * (C * r) * w * (2 * G)
+    nbytes = n * G * (3 + C) * 4 + n * 16 + 2 * C * kw["atlas_rows"] * \
+        kw["atlas_cols"] * 4
+    return nbytes, ops
+
+
+def k3_work(kw, keys):
+    """(bytes, float32 operations, fragments, hits) that one K3 call needs
+    on this run's inputs (``keys``: the (R, C) packed atlas).  Fragments
+    and hits as for K3_OPS_*; only a hit can change the atlas.  Bytes:
+    every group's flag and the active groups' particles and anchors read
+    once, each hit pixel's (depth, value) read and written once."""
+    import torch
+    from topsy_tpu_torch.ops import zsplat_accum as za
+    R, C = keys.shape
+    flags, G = kw["flags"], kw["group"]
+    n = flags.shape[0]
+    win = kw.get("window_cols", za.WINDOW_COLS)
+    prof = za.PROFILE_COLS if win == za.WINDOW_COLS else win
+    rolled = prof != win
+    cbase = kw["ce"] if rolled else kw["c0"]
+    ay_a, ax_a, ih_a = (kw[k].reshape(n, G) for k in ("ay_g", "ax_g", "ih_g"))
+    foot = za.FOOT
+    off = torch.arange(1 - int(foot), int(foot) + 1, device=flags.device)
+    hit_px = torch.zeros(R * C, dtype=torch.bool, device=flags.device)
+    lines = frags = hits = active = 0
+    for sz in (range(len(za.SIZE_CLASSES)) if rolled else (za.FULL_CLASS,)):
+        sel = torch.nonzero(flags == za.FLAG_ACTIVE * 4 + sz).flatten()
+        active += sel.numel()
+        rows_eval, cols_eval = za.class_extents(sz, kw["window_rows"], prof)
+        for s in range(0, sel.numel(), 1024):
+            g = sel[s:s + 1024]
+            ay, ax, ih = ay_a[g], ax_a[g], ih_a[g]
+            w0 = kw["w0"][g].long()[:, None, None]
+            cb = cbase[g].long()[:, None, None]
+            y = torch.floor(ay).long()[..., None] + off       # (B, G, 16)
+            x = torch.floor(ax).long()[..., None] + off
+            dy = y.float() - ay[..., None]
+            dx = x.float() - ax[..., None]
+            valid = (ih > 0.0)[..., None]
+            in_y = ((dy > -foot) & (dy <= foot) & (y >= w0)
+                    & (y < w0 + rows_eval) & (y >= 0) & (y < R) & valid)
+            in_x = ((dx > -foot) & (dx <= foot) & (x >= cb)
+                    & (x < cb + cols_eval) & (x >= 0) & (x < C) & valid)
+            frag = in_y[..., :, None] & in_x[..., None, :]
+            t = 4.0 - ((dy * dy)[..., :, None] + (dx * dx)[..., None, :]) \
+                * (ih * ih)[..., None, None]
+            hit = frag & (t > 0.0)
+            lines += int(in_y.sum()) + int(in_x.sum())
+            frags += int(frag.sum())
+            hits += int(hit.sum())
+            hit_px[(y[..., :, None] * C + x[..., None, :])[hit]] = True
+    nbytes = n * 4 + active * (G * 6 * 4 + 3 * 4) + int(hit_px.sum()) * 16
+    ops = (K3_OPS_PER_LINE * lines + K3_OPS_PER_FRAGMENT * frags
+           + K3_OPS_PER_HIT * hits)
+    return nbytes, float(ops), frags, hits
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -75,7 +192,12 @@ def main() -> int:
     import topsy_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
     from topsy_tpu_torch.loaders import TestDataLoader
     from topsy_tpu_torch.ops import (cuda_build, splat, splat_accum,
-                                     splat_atlas, splat_feed)
+                                     splat_atlas, splat_feed, zsplat,
+                                     zsplat_accum, zsplat_atlas)
+    from topsy_tpu_torch import config as cfg
+    from topsy_tpu_torch.ops.smooth import smooth_image
+    from topsy_tpu_torch.ops.splat_giant import BUCKET_DISABLED, GIANT_H
+    from topsy_tpu_torch.render import surface
     from topsy_tpu_torch.visualizer import (DrawReason, OffscreenCanvas,
                                             Visualizer)
 
@@ -90,7 +212,7 @@ def main() -> int:
 
     # ---- phase 2: build the kernels from this checkout ---------------------
     t0 = time.perf_counter()
-    cuda_build.library("splat_accum")
+    cuda_build.build(["splat_accum", "zsplat_accum"])     # nvcc in parallel
     # compile K1 on a two-group input
     tiny = torch.zeros((2, 512), device=dev)
     splat_feed.splat_feed_triton(
@@ -102,7 +224,8 @@ def main() -> int:
         ranged=False, has_mask=False, sentinel_ay=1000.0)
     torch.cuda.synchronize()
     log(f"phase build: {time.perf_counter() - t0:.2f} s "
-        "(nvcc for csrc/*.cu, then Triton JIT)")
+        "(nvcc for csrc/splat_accum.cu and csrc/zsplat_accum.cu in "
+        "parallel, then Triton JIT)")
 
     # ---- phase 3: the scene ------------------------------------------------
     t0 = time.perf_counter()
@@ -135,8 +258,8 @@ def main() -> int:
     pyramid = splat.default_pyramid(RESOLUTION)
     _, atlas_rows, atlas_cols = splat_atlas.atlas_layout(pyramid)
     feed_err, accum_err = 0.0, 0.0
-    feed_ms = feed_plain_ms = None
-    accum_ms, accum_plain_ms = {}, {}
+    feed_ms = feed_plain_ms = feed_bound = None
+    accum_ms, accum_plain_ms, accum_bound = {}, {}, {}
     for i, piece in enumerate(pieces):
         # K1, exactly as the renderer feeds this piece
         fargs, fkw = splat_atlas.feed_call(
@@ -165,6 +288,11 @@ def main() -> int:
                 lambda: splat_feed.splat_feed_triton(*fargs, **fkw), 10)
             feed_plain_ms = timed_ms(
                 lambda: splat_feed.splat_feed_plain(*fargs, **fkw), 3)
+            slots = fkw["piece_groups"] * G
+            feed_bound = bound(
+                slots * (4 + 2) * 4 + fkw["piece_groups"] * 8 * 4
+                + slots * (3 + 2 * 2) * 4 + fkw["piece_groups"] * 5 * 4,
+                slots * K1_OPS_PER_SLOT, F32_OPS_PER_S)
         kinds = torch.bincount((out_k[8] // 4).long(), minlength=5).tolist()
         log(f"phase K1 piece {piece}: ok; max abs diff {err:.3e}; groups by "
             f"kind [inactive, tiny, poly, mixed, masked] = {kinds}; spilled "
@@ -206,6 +334,7 @@ def main() -> int:
                     lambda: splat_accum.accumulate_groups_cuda(**kw), 5)
                 accum_plain_ms[shape] = timed_ms(
                     lambda: splat_accum.accumulate_groups_plain(**kw), 2)
+                accum_bound[shape] = bound(*k2_work(kw), BF16_OPS_PER_S)
                 timing = (f"; {accum_ms[shape]:.3f} ms (plain "
                           f"{accum_plain_ms[shape]:.3f} ms)")
             log(f"phase K2 piece {piece} {shape}: ok; groups "
@@ -217,6 +346,7 @@ def main() -> int:
     # ---- phase 6: the EXPORT path ------------------------------------------
     splat_feed.launches = 0
     splat_accum.launches = 0
+    zsplat_accum.launches = 0
     for _ in range(2):                      # warm-up frames
         sph.invalidate()
         sph.render(DrawReason.EXPORT)
@@ -237,7 +367,8 @@ def main() -> int:
     image = vis.get_sph_image()
     pres = vis.get_sph_presentation_image()
     launches = {"splat_feed": splat_feed.launches,
-                "accumulate_groups": splat_accum.launches}
+                "accumulate_groups": splat_accum.launches,
+                "accumulate_max_groups": zsplat_accum.launches}
     med = statistics.median(frame_ms)
     log(f"phase EXPORT: {FRAMES} frames, median {med:.3f} ms/frame "
         f"(CUDA events; host wall median {statistics.median(wall_ms):.3f} "
@@ -271,19 +402,255 @@ def main() -> int:
           f"presentation image {pres.shape} {pres.dtype}")
     check(pres[..., :3].std() > 0, "presentation image is constant")
 
+    del truth, ps, vals
+
+    # ---- phase S1: the surface mode on the same Visualizer -----------------
+    t0 = time.perf_counter()
+    vis.render_mode = "surface"           # renders (autorange) one frame
+    torch.cuda.synchronize()
+    ssph = vis._sph
+    check(isinstance(ssph, surface.SurfaceSPHRenderer), "not the surface "
+          "renderer")
+    prog = ssph._render_progression
+    prog.start_frame(DrawReason.EXPORT)
+    blocks = []
+    while (b := prog.get_block(0.0)) is not None:
+        blocks.append(b)
+        prog.end_block(0.0)
+    prog.end_frame_get_scalefactor()
+    check(blocks == [([0], [G])], f"the EXPORT block is not every column: "
+          f"{blocks}")
+    sps = store.pos_smooth_presorted
+    svals = store.presorted_values_for(ssph._buffer_name)
+    sbks = store.presorted_buckets
+    chunks = surface.column_chunks(sps.shape[0], G)
+    chunk_groups = [((c.start or 0) // G,
+                     ((c.stop or sps.shape[0]) - (c.start or 0)) // G)
+                    for c in chunks]
+    smatrix = ssph._matrix().astype(np.float32)
+    sscale = np.float32(ssph.scale)
+    pyr = splat.default_pyramid(RESOLUTION)
+    log(f"phase S1: {time.perf_counter() - t0:.2f} s; EXPORT blocks "
+        f"{blocks}; column launch chunks {chunk_groups} (first group, "
+        "groups)")
+
+    k3_err = 0.0
+    k3_ms, k3_plain_ms, k3_bound = {}, {}, {}
+
+    def k3_compare(label, kw, keys0, timing):
+        """Kernel and plain version on the whole call from the same atlas
+        state; returns the kernel's keys."""
+        nonlocal k3_err
+        nbytes, ops, frags, hits = k3_work(kw, keys0)
+        k = keys0.clone()
+        zsplat_accum.accumulate_max_packed_cuda(k, **kw)
+        p = keys0.clone()
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        zsplat_accum.accumulate_max_packed_plain(p, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - tp
+        a, b = zsplat_accum.unpack_atlas(k), zsplat_accum.unpack_atlas(p)
+        n_diff = int((a != b).sum().item())
+        err = float((a - b).abs().max().item())
+        check(n_diff == 0, f"K3 {label}: {n_diff} atlas entries differ from "
+              f"the plain version (max abs diff {err})")
+        k3_err = max(k3_err, err)
+        active = int((kw["flags"] // 4 == zsplat_accum.FLAG_ACTIVE).sum())
+        extra = ""
+        if timing:
+            k_t = keys0.clone()
+            k3_ms[label] = timed_ms(
+                lambda: zsplat_accum.accumulate_max_packed_cuda(k_t, **kw), 5)
+            k3_plain_ms[label] = plain_s * 1e3
+            k3_bound[label] = bound(nbytes, ops, F32_OPS_PER_S)
+            extra = (f"; {k3_ms[label]:.3f} ms (plain {plain_s * 1e3:.3f} "
+                     f"ms); bound {k3_bound[label][0]:.4f} ms "
+                     f"({k3_bound[label][1]}), "
+                     f"{k3_bound[label][0] / k3_ms[label]:.1%} of it")
+        log(f"phase S2 {label}: bit-identical; groups {kw['flags'].shape[0]}"
+            f" of {kw['group']} (active {active}); fragments {frags}, hits "
+            f"{hits}, bytes {nbytes}{extra}")
+        return k
+
+    def surface_frames(tag, percentile):
+        """Phases S2-S4 at one density-cut percentile; returns the kernels'
+        launches during its timed EXPORT frames and the covered share of
+        the image."""
+        ssph.set_density_cut_percentile(percentile)
+        ssph.invalidate()
+        ssph.render(DrawReason.EXPORT)
+        cut = np.float32(ssph._density_cut_value())
+        gb = int(ssph._giant_bucket)
+        log(f"phase S1 {tag}: density cut {float(cut):.6e} (percentile "
+            f"{percentile}); giant plan: bucket threshold {gb} "
+            f"({'disabled' if gb == BUCKET_DISABLED else 'layer'})")
+
+        # ---- S2: K3 against its plain version on every call of a frame
+        t0 = time.perf_counter()
+        za_kw = dict(density_cut=cut, giants=gb,
+                     spill_group_cap=4 * cfg.SPLAT_SPILL_GROUP_CAP,
+                     t3_cap=4096)
+        for ci, sl in enumerate(chunks):
+            main_kw, t2_kw, t3_kw, drop, shape = zsplat_atlas.deposit_calls(
+                sps[sl], svals[sl], smatrix, RESOLUTION, sscale, sbks[sl],
+                **za_kw)
+            keys = zsplat_accum.pack_atlas(torch.zeros(shape, device=dev))
+            for name, kw in (("main", main_kw), ("tier2", t2_kw),
+                             ("tier3", t3_kw)):
+                keys = k3_compare(f"{tag}_chunk{ci}_{name}", kw, keys,
+                                  timing=ci == 0)
+            log(f"phase S2 {tag} chunk {ci}: dropped {int(drop.item())}")
+            if ci == 0:
+                # the frame's plain parts around K3 at this chunk's shapes
+                front_ms = timed_ms(lambda: zsplat_atlas.deposit_calls(
+                    sps[sl], svals[sl], smatrix, RESOLUTION, sscale, sbks[sl],
+                    **za_kw), 3)
+                collapse_ms = timed_ms(lambda: zsplat_atlas.collapse_max_atlas(
+                    zsplat_accum.unpack_atlas(keys), pyr), 3)
+                log(f"phase S2 {tag} chunk 0 plain parts: front end, anchors "
+                    f"and spill gathers (deposit_calls) {front_ms:.3f} ms; "
+                    f"unpack and max-composite collapse {collapse_ms:.3f} ms")
+                # a zero-row fit window makes every gathered spilled
+                # particle a straggler, so the one-particle shape sees real
+                # anchors
+                _, _, forced, _, _ = zsplat_atlas.deposit_calls(
+                    sps[sl], svals[sl], smatrix, RESOLUTION, sscale, sbks[sl],
+                    window_rows=0, **za_kw)
+                check((forced["flags"] // 4 == zsplat_accum.FLAG_ACTIVE).any(),
+                      f"{tag} forced tier 3: no active straggler")
+                k3_compare(f"{tag}_chunk0_tier3_forced", forced,
+                           zsplat_accum.pack_atlas(
+                               torch.zeros(shape, device=dev)), timing=True)
+            del main_kw, t2_kw, t3_kw, keys
+        log(f"phase S2 {tag}: {time.perf_counter() - t0:.1f} s")
+
+        # ---- S3: the surface EXPORT path
+        splat_feed.launches = 0
+        splat_accum.launches = 0
+        zsplat_accum.launches = 0
+        for _ in range(2):                      # warm-up frames
+            ssph.invalidate()
+            ssph.render(DrawReason.EXPORT)
+        torch.cuda.synchronize()
+        sframe_ms, swall_ms = [], []
+        for _ in range(FRAMES):
+            ssph.invalidate()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            ssph.render(DrawReason.EXPORT)
+            end.record()
+            torch.cuda.synchronize()
+            swall_ms.append((time.perf_counter() - t0) * 1e3)
+            sframe_ms.append(start.elapsed_time(end))
+        slaunches = {"splat_feed": splat_feed.launches,
+                     "accumulate_groups": splat_accum.launches,
+                     "accumulate_max_groups": zsplat_accum.launches}
+        smed = statistics.median(sframe_ms)
+        simg = ssph.get_output_image()
+        smooth_ms = timed_ms(lambda: smooth_image(simg, 0.01), 3)
+        present_ms = timed_ms(lambda: vis.colormap.to_rgba(simg), 3)
+        t0 = time.perf_counter()
+        content = vis.get_sph_image()          # smoothed on the card
+        content_ms = (time.perf_counter() - t0) * 1e3
+        log(f"phase S3 {tag} surface EXPORT: {FRAMES} frames, median "
+            f"{smed:.3f} ms/frame (CUDA events; host wall median "
+            f"{statistics.median(swall_ms):.3f} ms), "
+            f"{N_PARTICLES / (smed / 1e3):.6e} particles/s, "
+            f"last_dropped_splats {ssph.last_dropped_splats}, frames ms "
+            f"{[round(t, 3) for t in sframe_ms]}; bilateral filter "
+            f"{smooth_ms:.3f} ms, presentation (filter + lighting) "
+            f"{present_ms:.3f} ms, get_sph_image {content_ms:.3f} ms (host "
+            f"wall); launches during the frames {slaunches}")
+        check(slaunches["accumulate_max_groups"] > 0,
+              f"K3 was not launched on the surface EXPORT path: {slaunches}")
+        check(content.shape == (RESOLUTION, RESOLUTION, 2)
+              and np.isfinite(content).all(),
+              f"surface get_sph_image {content.shape} not finite")
+
+        # ---- S4: the surface output is right
+        t0 = time.perf_counter()
+        sraw = ssph.get_image()
+        check(sraw.shape == (RESOLUTION, RESOLUTION, 2),
+              f"surface image shape {sraw.shape}")
+        check(np.isfinite(sraw).all(), "surface image not finite")
+        lev = splat.levels_from_buckets(sbks, RESOLUTION / (2.0 * sscale),
+                                        pyr.num_levels)
+        gmask = None
+        if gb != BUCKET_DISABLED:
+            _, _, _, h_px, _ = splat.project(sps, smatrix, RESOLUTION, sscale)
+            h_l = h_px * splat.exp2_int(-lev)
+            gmask = ~((h_l > GIANT_H) & (sbks >= gb))
+        struth = zsplat.zsplat_scatter(sps, svals, smatrix, RESOLUTION,
+                                       sscale, density_cut=cut,
+                                       extra_mask=gmask, level_override=lev)
+        if ssph._surface_giant_layer is not None:
+            struth = surface._max_composite(struth, ssph._surface_giant_layer)
+        struth = struth.cpu().numpy()
+        cov_t, cov_r = struth[..., 1] > 0, sraw[..., 1] > 0
+        flips = int((cov_t != cov_r).sum())
+        both = cov_t & cov_r
+        d_ok = np.isclose(sraw[..., 1][both], struth[..., 1][both],
+                          rtol=1e-5, atol=1e-4)
+        v_ok = np.isclose(sraw[..., 0][both], struth[..., 0][both],
+                          rtol=1e-5, atol=1e-6)
+        spres = vis.get_sph_presentation_image()
+        log(f"phase S4 {tag} truth: covered {int(cov_r.sum())} px "
+            f"({cov_r.mean():.4f} of the image), coverage flips {flips} "
+            f"({flips / max(cov_t.sum(), 1):.3e} of covered), depth within "
+            f"rtol 1e-5/atol 1e-4 on {d_ok.mean():.6f}, winner values agree "
+            f"on {v_ok.mean():.6f} of both-covered pixels "
+            f"({int((~v_ok).sum())} differ), against zsplat_scatter "
+            f"({time.perf_counter() - t0:.1f} s)")
+        check(cov_r.sum() > 0, "the surface image covers nothing")
+        check(flips <= 1e-4 * cov_t.sum(), f"coverage flips {flips}")
+        check(d_ok.all(), f"depth differs on {int((~d_ok).sum())} pixels")
+        check(v_ok.mean() >= 0.999, f"winner values agree on {v_ok.mean()}")
+        check(spres.shape == (RESOLUTION, RESOLUTION, 4)
+              and spres.dtype == np.uint8,
+              f"surface presentation image {spres.shape} {spres.dtype}")
+        check(spres[..., :3].std() > 0,
+              "surface presentation image is constant")
+        return slaunches, float(cov_r.mean())
+
+    runs = {tag: surface_frames(tag, pct) for tag, pct in SURFACE_CUTS}
+    slaunches = {tag: r[0] for tag, r in runs.items()}
+    check(runs["cut0"][1] >= 0.5, f"the lowest cut covers {runs['cut0'][1]} "
+          "of the image, not at least half")
+
     # ---- phase 8: kernels --------------------------------------------------
     kernels = [
         {"name": "splat_feed", "route": "triton",
          "source": "topsy_tpu_torch/ops/splat_feed.py",
          "replaces": "topsy_tpu/ops/splat_feed.py:207",
          "launches": launches["splat_feed"], "max_abs_err": feed_err,
-         "ms": feed_ms, "plain_ms": feed_plain_ms},
+         "ms": feed_ms, "plain_ms": feed_plain_ms,
+         "bound_ms": feed_bound[0], "bound_by": feed_bound[1],
+         "library_ms": None},
         {"name": "accumulate_groups", "route": "cuda",
          "source": "topsy_tpu_torch/csrc/splat_accum.cu",
          "replaces": "topsy_tpu/ops/splat_pallas.py:317",
          "launches": launches["accumulate_groups"], "max_abs_err": accum_err,
          "ms": accum_ms["main"], "plain_ms": accum_plain_ms["main"],
-         "ms_by_shape": accum_ms, "plain_ms_by_shape": accum_plain_ms},
+         "bound_ms": accum_bound["main"][0],
+         "bound_by": accum_bound["main"][1], "library_ms": None,
+         "ms_by_shape": accum_ms, "plain_ms_by_shape": accum_plain_ms,
+         "bound_ms_by_shape": {k: v[0] for k, v in accum_bound.items()}},
+        {"name": "accumulate_max_groups", "route": "cuda",
+         "source": "topsy_tpu_torch/csrc/zsplat_accum.cu",
+         "replaces": "topsy_tpu/ops/zsplat_pallas.py:203",
+         "launches": slaunches["cut50"]["accumulate_max_groups"],
+         "max_abs_err": k3_err, "ms": k3_ms["cut50_chunk0_main"],
+         "plain_ms": k3_plain_ms["cut50_chunk0_main"],
+         "bound_ms": k3_bound["cut50_chunk0_main"][0],
+         "bound_by": k3_bound["cut50_chunk0_main"][1], "library_ms": None,
+         "launches_by_cut": {k: v["accumulate_max_groups"]
+                             for k, v in slaunches.items()},
+         "ms_by_shape": k3_ms, "plain_ms_by_shape": k3_plain_ms,
+         "bound_ms_by_shape": {k: v[0] for k, v in k3_bound.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

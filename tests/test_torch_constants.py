@@ -9,6 +9,9 @@ from topsy_tpu.ops import splat as r_splat
 from topsy_tpu.ops import splat_atlas as r_atlas
 from topsy_tpu.ops import splat_giant as r_giant
 from topsy_tpu.ops import splat_pallas as r_pallas
+from topsy_tpu.ops import zsplat as r_zsplat
+from topsy_tpu.ops import zsplat_atlas as r_zatlas
+from topsy_tpu.ops import zsplat_pallas as r_zpallas
 
 from topsy_tpu_torch.color import maps as p_maps
 from topsy_tpu_torch.ops import splat as p_splat
@@ -16,6 +19,9 @@ from topsy_tpu_torch.ops import splat_accum as p_accum
 from topsy_tpu_torch.ops import splat_atlas as p_atlas
 from topsy_tpu_torch.ops import splat_giant as p_giant
 from topsy_tpu_torch.ops import stats as p_stats
+from topsy_tpu_torch.ops import zsplat as p_zsplat
+from topsy_tpu_torch.ops import zsplat_accum as p_zaccum
+from topsy_tpu_torch.ops import zsplat_atlas as p_zatlas
 from topsy_tpu.ops import stats as r_stats
 
 PINNED = [
@@ -30,6 +36,11 @@ PINNED = [
     (p_giant, r_giant, ["FOOT", "GIANT_H", "CAP", "GIANT_RANK",
                         "GIANT_DEGREE", "NBIG", "BUCKET_DISABLED"]),
     (p_stats, r_stats, ["HIST_BINS"]),
+    (p_zaccum, r_zpallas, ["NEG", "FLAG_SKIP", "FLAG_ACTIVE", "FULL_CLASS",
+                           "SIZE_CLASSES", "PROFILE_COLS", "WINDOW_COLS",
+                           "WINDOW_ROWS"]),
+    (p_zsplat, r_zsplat, ["HEMI_SUPPORT"]),
+    (p_zatlas, r_zatlas, ["GROUP"]),
 ]
 
 CASES = [(p, r, name) for p, r, names in PINNED for name in names]
@@ -55,6 +66,18 @@ def test_t3_cap_and_window_rows_match_reference_literals():
     assert p_atlas.T3_CAP == 1024
     assert "window_rows = 96" in inspect.getsource(r_atlas.splat_atlas_fields)
     assert p_atlas.PRESORTED_WINDOW_ROWS == 96
+
+
+def test_surface_literals_match_reference():
+    """The surface path's window height (96), tier-3 budget without a cap
+    (1024) and footprint (8) are literals inside the reference's
+    functions."""
+    import inspect
+    src = inspect.getsource(r_zatlas.zsplat_atlas)
+    assert "window_rows = 96" in src and p_zatlas.WINDOW_ROWS == 96
+    assert "1024 if t3_cap is None" in src and p_zatlas.T3_DEFAULT == 1024
+    assert "foot = 8.0" in inspect.getsource(r_zpallas._max_deposit)
+    assert p_zaccum.FOOT == 8.0 == p_atlas.FOOT
 
 
 def test_packaged_luts_match_matplotlib():

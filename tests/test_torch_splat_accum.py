@@ -12,6 +12,8 @@ multiply the same bf16-rounded operands exactly in f32; only the order of
 the f32 sums differs.  Inputs are built as in
 tests/test_splat_pallas_fresh.py, from a seeded numpy generator."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,11 @@ from topsy_tpu_torch.ops import splat_accum as p_accum
 from topsy_tpu_torch.ops.splat_accum import (FLAG_ALL_TINY, FLAG_INACTIVE,
                                              FLAG_MASKED, FLAG_MIXED,
                                              FLAG_POLY, FULL_CLASS)
+
+# one process's share of the cores when pytest-xdist runs several workers
+# (torch's default, every core in each process, oversubscribes them)
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 C = 2
 ATLAS_ROWS = 400

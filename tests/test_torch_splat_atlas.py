@@ -8,6 +8,8 @@ Bounds are the reference's own cross-engine bounds
 difference <= 1% of the image maximum, correlation > 0.9999, and equal
 ``dropped`` counts."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,11 @@ from topsy_tpu_torch import convert
 from topsy_tpu_torch.ops import splat as p_splat
 from topsy_tpu_torch.ops import splat_atlas as p_atlas
 from topsy_tpu_torch.ops import splat_giant as p_giant
+
+# one process's share of the cores when pytest-xdist runs several workers
+# (torch's default, every core in each process, oversubscribes them)
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 RES, SCALE = 256, 120.0
 

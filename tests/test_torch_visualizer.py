@@ -12,11 +12,18 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import topsy_tpu
 import topsy_tpu_torch
-from topsy_tpu.canvas import OffscreenCanvas
-from topsy_tpu.drawreason import DrawReason
+from topsy_tpu.canvas import OffscreenCanvas as RefCanvas
+from topsy_tpu_torch.canvas import OffscreenCanvas
+from topsy_tpu_torch.drawreason import DrawReason
+
+# one process's share of the cores when pytest-xdist runs several workers
+# (torch's default, every core in each process, oversubscribes them)
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_render.npz")
 N, RES = 20000, 128
@@ -32,7 +39,7 @@ def port():
 
 @pytest.fixture(scope="module")
 def ref():
-    v = topsy_tpu.test(N, render_resolution=RES, canvas_class=OffscreenCanvas)
+    v = topsy_tpu.test(N, render_resolution=RES, canvas_class=RefCanvas)
     v.show_status = False
     np.asarray(v.get_sph_image())      # first export: the sorted path
     v._sph.invalidate()
@@ -107,7 +114,8 @@ def test_piece_loop_covers_every_group(port, monkeypatch):
     assert sph.pieces() == [None]
     sph.invalidate()
     whole = sph.get_image()
-    monkeypatch.setattr(topsy_tpu.config, "SPLAT_FEED_LAUNCH_CAP", 8 * G)
+    monkeypatch.setattr(topsy_tpu_torch.config, "SPLAT_FEED_LAUNCH_CAP",
+                        8 * G)
     pieces = sph.pieces()
     assert len(pieces) >= 2 and pieces[0] == (0, 8)
     assert all(a[0] + a[1] == b[0] for a, b in zip(pieces, pieces[1:]))

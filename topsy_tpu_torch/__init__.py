@@ -1,11 +1,16 @@
 """topsy_tpu_torch — the PyTorch/CUDA port of topsy_tpu.
 
-The presorted EXPORT render (loader -> host presort -> feed kernel ->
-low-rank deposit kernel -> spill tiers -> pyramid collapse -> giant layer ->
-colormap) on tensors, with hand-written kernels for NVIDIA Hopper
-(``ops/splat_feed.py``: Triton; ``csrc/splat_accum.cu``: CUDA C++).  The
-package imports ``torch`` and never ``jax``; it reuses the reference's
-jax-free modules (config, camera, morton, kernels, loaders, overlays).
+The presorted EXPORT renders on tensors, with hand-written kernels for
+NVIDIA Hopper: the univariate (additive) mode (loader -> host presort ->
+feed kernel K1, ``ops/splat_feed.py``, Triton -> low-rank deposit kernel K2,
+``csrc/splat_accum.cu`` -> spill tiers -> pyramid collapse -> giant layer ->
+colormap) and the surface (z-buffered) mode (host presort -> plain front end
+-> front-most-fragment kernel K3, ``csrc/zsplat_accum.cu`` -> spill tiers ->
+max-composite collapse -> giant layer -> bilateral filter and lighting).
+The package imports ``torch`` and never ``jax`` nor anything of
+``topsy_tpu``: it keeps pinned copies of the jax-free modules it needs
+(config, camera, drawreason, canvas, overlays, units, cells, progression,
+loaders, ops/kernels, ops/morton, native).
 
 Entry points mirror the reference: ``test(n, ...)`` and ``load("test://N")``
 return a :class:`~topsy_tpu_torch.visualizer.Visualizer`.
@@ -15,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from topsy_tpu import config
+from . import config
 
 __version__ = "0.1.0"
 

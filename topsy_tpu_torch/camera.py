@@ -1,0 +1,35 @@
+"""World-to-clip transform.
+
+A pinned copy of ``world_to_clip_matrix`` from ``topsy_tpu/camera.py``: a
+rotation about the origin, uniform scaling by 1/scale, a model translation
+by ``position_offset`` applied first, and a final squash of the z axis into
+[0, 1].  Image row 0 is the top of the scene.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def world_to_clip_matrix(rotation_matrix: np.ndarray,
+                         position_offset: np.ndarray,
+                         scale: float) -> np.ndarray:
+    """4x4 matrix taking world-space homogeneous positions to clip space.
+
+    clip = C @ (R/s) @ T @ [x, y, z, 1] with T the position_offset translate,
+    R/s the rotation-and-scale, and C the z->[0,1] squash.
+    """
+    model_displace = np.eye(4)
+    model_displace[:3, 3] = np.asarray(position_offset, dtype=np.float64)
+
+    clipcoord_displace = np.array([[1.0, 0, 0, 0.0],
+                                   [0, 1.0, 0, 0.0],
+                                   [0, 0, 0.5, 0.5],
+                                   [0, 0, 0.0, 1.0]])
+
+    rotation_and_scaling = np.zeros((4, 4))
+    rotation_and_scaling[:3, :3] = np.asarray(rotation_matrix) / scale
+    rotation_and_scaling[3, 3] = 1.0
+
+    return (clipcoord_displace @ rotation_and_scaling
+            @ model_displace).astype(np.float32)

@@ -8,7 +8,7 @@ accepts them is built in its place.
 
 from __future__ import annotations
 
-from topsy_tpu import config
+from .. import config
 
 from . import maps
 

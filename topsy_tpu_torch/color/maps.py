@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from topsy_tpu import config
+from .. import config
 
 logger = logging.getLogger(__name__)
 
@@ -126,7 +126,9 @@ class ColormapBase:
     def to_rgba(self, raw_image, mass_scale: float = 1.0) -> torch.Tensor:
         raise NotImplementedError
 
-    def sph_raw_output_to_content(self, numpy_image: np.ndarray) -> np.ndarray:
+    def sph_raw_output_to_content(self, image) -> np.ndarray:
+        """The logical content of a raw image (array or tensor), on the
+        host."""
         raise NotImplementedError
 
     def autorange_vmin_vmax(self, vals):
@@ -169,7 +171,8 @@ class Colormap(ColormapBase):
             self._lut_for = key
         return self._lut
 
-    def sph_raw_output_to_content(self, numpy_image: np.ndarray) -> np.ndarray:
+    def sph_raw_output_to_content(self, image) -> np.ndarray:
+        numpy_image = torch.as_tensor(image).cpu().numpy()
         if self._params["weighted_average"]:
             with np.errstate(invalid="ignore", divide="ignore"):
                 return numpy_image[..., 1] / numpy_image[..., 0]

@@ -1,9 +1,10 @@
 """Carry the reference's host presort state over to the port's tensors.
 
-The host presort (``topsy_tpu.ops.morton.build_presorted``) is jax-free
-numpy; this module turns its ``PresortedLayout`` plus host particle arrays
-into the port's device state.  The port's store builds its state through it,
-and the tests use it to give both packages identical inputs.
+The host presort (``ops.morton.build_presorted``, or the reference's own
+``PresortedLayout``, taken duck-typed as a plain object with numpy fields)
+plus host particle arrays become the port's device state.  The port's store
+builds its state through it, and the tests use it to give both packages
+identical inputs.
 """
 
 from __future__ import annotations
@@ -11,9 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from topsy_tpu.ops import morton
-
-from .ops import splat_giant
+from .ops import morton, splat_giant
 
 
 def values_from_reference(layout, values: np.ndarray, slots: np.ndarray,
@@ -36,8 +35,9 @@ def state_from_reference(layout, pos_smooth: np.ndarray, values: np.ndarray,
     pos_smooth: (n, 4) f32 host positions + smoothing; values: (n, C) host
     channel values; cell_ids: optional (n,) host cell index per particle.
     Returns dict(fields=(x, y, z, h) each (n_groups, G), values_cm (C,
-    n_groups, G), group_buckets (n_groups,) int32, giant_meta (host tuple,
-    see ``splat_giant.candidate_slots``), giant_pos (m, 4), giant_buckets
+    n_groups, G), group_buckets (n_groups,) int32, buckets (n_out,) int32,
+    giant_meta (host tuple, see ``splat_giant.candidate_slots``), giant_pos
+    (m, 4), giant_buckets
     (m,) int32, giant_values (m, C), giant_cell_ids (m,) int32,
     cell_ids_presorted (n_out,) int32), all tensors on ``device``."""
     G = layout.pad_group
@@ -60,6 +60,8 @@ def state_from_reference(layout, pos_smooth: np.ndarray, values: np.ndarray,
         cell_p = layout.apply(np.asarray(cell_ids, dtype=np.int32))
     return dict(
         fields=fields, values_cm=values_cm, group_buckets=group_buckets,
+        buckets=torch.from_numpy(np.asarray(layout.buckets, np.int32)).to(
+            device),
         giant_meta=meta,
         giant_pos=torch.from_numpy(np.ascontiguousarray(ps_p[slots])).to(device),
         giant_buckets=torch.from_numpy(meta[1].astype(np.int32)).to(device),

@@ -1,7 +1,8 @@
-"""2x pyramid upsampling for the atlas collapse.
+"""2x pyramid upsampling for the atlas collapses.
 
-Counterpart of ``_upsample2x_matrix`` and ``upsample2x_kind_cm`` in
-``topsy_tpu/ops/composite.py``.  The interpolation matrices are the
+Counterpart of ``_upsample2x_matrix``, ``upsample2x_kind_cm`` and
+``upsample2x_zmax_cm`` in ``topsy_tpu/ops/composite.py``.  The
+interpolation matrices are the
 reference's own (host numpy, cached); the two per-axis products run as
 float32 matmuls with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` is
 set False in ``topsy_tpu_torch/__init__.py``), as the reference runs them
@@ -27,13 +28,22 @@ def _bspline3(t: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def _upsample2x_matrix(n: int, kind: str = "spline") -> np.ndarray:
     """(n, 2n) interpolation matrix: y = x @ M upsamples the last axis with
-    half-pixel-centre sampling and edge clamp — the interpolating cubic
-    spline (B-spline prefilter folded in), built as the reference builds it.
-    The port implements the configured filter, 'spline', only."""
+    half-pixel-centre sampling and edge clamp, built as the reference builds
+    it.  ``kind``: 'linear' (out[2k] = 0.75 in[k] + 0.25 in[k-1], out[2k+1]
+    = 0.75 in[k] + 0.25 in[k+1]; the surface collapse) or 'spline' (the
+    interpolating cubic spline, B-spline prefilter folded in; the configured
+    density collapse).  The 'catmull' filter is not ported."""
+    m = np.zeros((n, 2 * n), dtype=np.float32)
+    if kind == "linear":
+        k = np.arange(n)
+        m[k, 2 * k] += 0.75
+        m[np.maximum(k - 1, 0), 2 * k] += 0.25
+        m[k, 2 * k + 1] += 0.75
+        m[np.minimum(k + 1, n - 1), 2 * k + 1] += 0.25
+        return m
     if kind != "spline":
         raise ValueError(f"pyramid collapse filter {kind!r}: the port "
-                         "implements 'spline' only")
-    m = np.zeros((n, 2 * n), dtype=np.float32)
+                         "implements 'linear' and 'spline'")
     if n < 2:
         m[:, :] = 1.0
         return m
@@ -62,3 +72,26 @@ def upsample2x_kind_cm(x: torch.Tensor, kind: str) -> torch.Tensor:
     dev = str(x.device)
     t = torch.einsum("chw,hH->cHw", x, _matrix_on(H, kind, dev))
     return torch.einsum("cHw,wW->cHW", t, _matrix_on(W, kind, dev))
+
+
+def upsample2x_zmax_cm(dv: torch.Tensor) -> torch.Tensor:
+    """Coverage-normalized 2x bilinear upsample of a (2=[depth, payload], H,
+    W) z-buffer level (depth > 0 means covered), as the reference's
+    ``upsample2x_zmax_cm``: (depth*cov, payload*cov, cov) are interpolated
+    and normalized by the interpolated coverage; a fine pixel is covered iff
+    that coverage exceeds 0.5.  The payload is the nearest coarse pixel's
+    (the winner's quantity, never a blend), falling back to the
+    coverage-weighted average where the nearest coarse pixel is empty."""
+    depth, val = dv[0], dv[1]
+    cov = (depth > 0.0).to(depth.dtype)
+    up = upsample2x_kind_cm(torch.stack([depth * cov, val * cov, cov]),
+                            "linear")
+    covf = up[2]
+    valid = covf > 0.5
+    inv = 1.0 / torch.clamp(covf, min=1e-20)
+    near_v = val.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    near_cov = cov.repeat_interleave(2, dim=0).repeat_interleave(2,
+                                                                 dim=1) > 0.0
+    payload = torch.where(near_cov, near_v, up[1] * inv)
+    return torch.stack([torch.where(valid, up[0] * inv, 0.0),
+                        torch.where(valid, payload, 0.0)])

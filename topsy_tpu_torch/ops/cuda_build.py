@@ -37,20 +37,32 @@ def nvcc_path() -> str:
                        "CUDA toolkit (set CUDA_HOME)")
 
 
+def build(names) -> None:
+    """Compile ``csrc/<name>.cu`` for every name not yet loaded, one
+    ``nvcc`` process per source, all started together, and load them."""
+    todo = [n for n in dict.fromkeys(names) if n not in _libs]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {n: subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(BUILD_DIR / f"lib{n}.so"),
+         str(CSRC / f"{n}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for n in todo}
+    failed = []
+    for n, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{n}.cu:\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for n in todo:
+        _libs[n] = ctypes.CDLL(str(BUILD_DIR / f"lib{n}.so"))
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = BUILD_DIR / f"lib{name}.so"
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(out),
-                               str(CSRC / f"{name}.cu")],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        lib = _libs[name] = ctypes.CDLL(str(out))
-    return lib
+    build([name])
+    return _libs[name]
 
 
 def triton_cache_dir() -> str:

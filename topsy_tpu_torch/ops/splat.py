@@ -15,8 +15,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from topsy_tpu import config
-from topsy_tpu.ops import kernels
+from .. import config
+from . import kernels
 
 WINDOW = config.SPLAT_WINDOW
 H_MAX = config.SPLAT_MAX_HALF_SIZE_PX
@@ -108,7 +108,7 @@ def assign_levels(h_px: torch.Tensor, num_levels: int, lev=None):
 def levels_from_buckets(buckets: torch.Tensor, px_per_world, num_levels: int):
     """Pyramid levels derived from static 1/8-octave smoothing buckets
     (the bucket's upper edge is the representative smoothing)."""
-    from topsy_tpu.ops.morton import DELTA_OCTAVE
+    from .morton import DELTA_OCTAVE
     s = torch.log2(_scalar(px_per_world / H_MAX, buckets.device))
     lev = torch.ceil((buckets.to(torch.float32) + 1.0) * DELTA_OCTAVE + s)
     return torch.clamp(lev, 0, num_levels - 1).to(torch.int32)

@@ -24,7 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
-from topsy_tpu.ops import kernels
+from . import kernels
 
 WINDOW_ROWS = 64
 WINDOW_COLS = 256

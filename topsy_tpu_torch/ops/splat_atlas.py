@@ -16,8 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from topsy_tpu import config
-
+from .. import config
 from . import splat_accum, splat_feed, splat_giant
 from .splat import (H_MAX, PyramidSpec, default_pyramid, exp2_int,
                     levels_from_buckets, splat_coefficients)

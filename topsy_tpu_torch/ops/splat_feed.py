@@ -27,8 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from topsy_tpu.ops import kernels
-
+from . import kernels
 from .splat import H_MAX, H_MIN, H_TRUNC, _norm_poly
 from .splat_accum import (COL_ALIGN, FLAG_ALL_TINY, FLAG_INACTIVE,
                           FLAG_MASKED, FLAG_MIXED, FLAG_POLY, FULL_CLASS,

@@ -9,6 +9,9 @@ The products run in full float32 (TF32 off, set in
 ``topsy_tpu_torch/__init__.py``), as the reference forces
 ``Precision.HIGHEST``: corner pixels are often dominated by one giant.
 
+``zsplat_giant_image`` is the surface mode's counterpart: the exact
+front-most hemisphere fragments of the giants over the whole framebuffer.
+
 The candidate planning (``candidate_slots`` .. ``giant_plan``) is host numpy
 over the host presort layout.
 """
@@ -20,8 +23,8 @@ import functools
 import numpy as np
 import torch
 
-from topsy_tpu import config
-from topsy_tpu.ops import kernels
+from .. import config
+from . import kernels
 
 FOOT = 8.0
 GIANT_H = FOOT / kernels.KERNEL_SUPPORT  # 4.0 level px
@@ -121,6 +124,41 @@ def _exact_subpass(cy, cx, h_px, coef, resolution: int):
     return out
 
 
+def zsplat_giant_image(cy, cx, h_px, z01, h_clip_half, qty, active,
+                       resolution: int, chunk: int = 16):
+    """Dense full-support z-buffered giant pass for surface mode: ``depth =
+    z01 + h_clip_half * sqrt(4 - q^2)`` with q on the true pixel smoothing
+    over the whole framebuffer, front-most fragment kept (first giant on a
+    depth tie, as the reference's argmax), ``chunk`` giants at a time.
+    Returns the (res, res, 2) [value, depth] layer (depth 0 = empty)."""
+    from .zsplat import HEMI_SUPPORT
+    dev = cy.device
+    sup2 = HEMI_SUPPORT * HEMI_SUPPORT
+    grid = torch.arange(resolution, dtype=torch.float32, device=dev)
+    vbuf = torch.zeros((resolution, resolution), dtype=torch.float32,
+                       device=dev)
+    dbuf = torch.full((resolution, resolution), -torch.inf,
+                      dtype=torch.float32, device=dev)
+    for s in range(0, cy.shape[0], chunk):
+        e = s + chunk
+        inv = 1.0 / torch.clamp(h_px[s:e], min=1e-30)
+        dy2 = ((grid[None, :] - cy[s:e, None]) * inv[:, None]) ** 2
+        dx2 = ((grid[None, :] - cx[s:e, None]) * inv[:, None]) ** 2
+        q2 = dy2[:, :, None] + dx2[:, None, :]
+        q2 = torch.where(torch.isfinite(q2), q2, sup2)
+        k = torch.sqrt(torch.clamp(sup2 - q2, min=0.0))
+        inside = (q2 < sup2) & active[s:e, None, None]
+        depth = torch.where(inside, z01[s:e, None, None]
+                            + k * h_clip_half[s:e, None, None], -torch.inf)
+        di, win = torch.max(depth, dim=0)
+        take = di > dbuf
+        vbuf = torch.where(take, qty[s:e][win], vbuf)
+        dbuf = torch.where(take, di, dbuf)
+    dbuf = torch.clamp(dbuf, min=0.0)
+    vbuf = torch.where(dbuf > 0.0, vbuf, 0.0)
+    return torch.stack([vbuf, dbuf], dim=-1)
+
+
 def _topk_indices(score: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest scores, ties to the lower index (the
     order ``jax.lax.top_k`` returns)."""
@@ -167,7 +205,7 @@ def candidate_slots(layout, cap: int = CAP):
 def capable_buckets(buckets: np.ndarray, resolution: int, scale: float,
                     num_levels: int) -> np.ndarray:
     """Which buckets could contain giants at this zoom (host math)."""
-    from topsy_tpu.ops.morton import DELTA_OCTAVE
+    from .morton import DELTA_OCTAVE
 
     from .splat import H_MAX
     ppw = resolution / (2.0 * float(scale))

@@ -16,10 +16,9 @@ import logging
 import numpy as np
 import torch
 
-from topsy_tpu import config
-from topsy_tpu.camera import world_to_clip_matrix
-from topsy_tpu.drawreason import DrawReason
-
+from .. import config
+from ..camera import world_to_clip_matrix
+from ..drawreason import DrawReason
 from ..ops import splat, splat_atlas, splat_giant
 from ..util import TimeDeviceOperation
 from .store import ParticleStore
@@ -129,6 +128,30 @@ class SPHRenderer:
         mean = self._render_timer.running_mean_duration
         self.last_render_fps = 1.0 / mean if mean > 0 else 0.0
         self.has_rendered = True
+
+    def _maybe_activate_columns(self, draw_reason) -> bool:
+        """Switch the progression to sort-free column LOD over the host
+        presort (``RenderProgressionColumns``), once per renderer; a REFINE
+        or EXPORT frame never switches.  The host layout has no decimation
+        tiers.  Returns whether the columns progression is active."""
+        from ..ops.morton import min_slice_width
+        from ..progression import RenderProgressionColumns
+        if isinstance(self._render_progression, RenderProgressionColumns):
+            return True
+        if draw_reason in (DrawReason.REFINE, DrawReason.EXPORT):
+            return False
+        if not config.INTERACTIVE_USE_PRESORTED:
+            return False
+        store = self._store
+        store.ensure_presorted()
+        layout = store.presorted_layout
+        if layout.real_per_column is None:
+            return False  # layout without safe column slicing
+        self._render_progression = RenderProgressionColumns(
+            layout.real_per_column,
+            cell_layout=getattr(self._render_progression, "cell_layout", None),
+            col_quantum=min_slice_width(layout), mip_tiers=[])
+        return True
 
     def _prepare_giants(self, matrix, scale):
         """Per-frame giant planning: sets the exclusion bucket threshold and

@@ -1,10 +1,11 @@
-"""Device-resident particle storage for the presorted EXPORT path.
+"""Device-resident particle storage for the presorted EXPORT paths.
 
 Counterpart of ``topsy_tpu/render/store.py`` (``ParticleStore`` with the
 host presort).  The snapshot stays in host numpy until the presort is built
-(``topsy_tpu.ops.morton.build_presorted``, once per snapshot); the
-transposed presorted fields, channel values and the giant candidate pool
-then live on ``device`` (``convert.state_from_reference``).
+(``ops.morton.build_presorted``, once per snapshot); the transposed
+presorted fields, channel values and the giant candidate pool then live on
+``device`` (``convert.state_from_reference``), with flat (n_out, .) views
+for the surface path.
 """
 
 from __future__ import annotations
@@ -14,10 +15,9 @@ import logging
 import numpy as np
 import torch
 
-from topsy_tpu.ops import morton
-
 from .. import convert
 from ..loaders import AbstractDataLoader
+from ..ops import morton
 
 logger = logging.getLogger(__name__)
 
@@ -60,16 +60,19 @@ class ParticleStore:
         logger.info("Quantity channel now %r", name)
 
     def host_values_for(self, buffer_name: str) -> np.ndarray:
-        """(n, C) host channel values: (mass, mass * quantity)."""
-        if buffer_name != "mass_and_quantity":
+        """(n, C) host channel values: (mass, mass * quantity) for
+        ``mass_and_quantity``, (mass, raw quantity) for ``surface_values``
+        (the surface winner displays the quantity itself)."""
+        if buffer_name not in ("mass_and_quantity", "surface_values"):
             raise KeyError(f"{buffer_name!r}: the port renders the univariate "
-                           "(mass, mass*quantity) buffer only (ROADMAP M10)")
+                           "and surface buffers only (ROADMAP M10)")
         if self._quantity_name is None:
             q = np.zeros_like(self._mass)
         else:
-            qty = self._loader.get_named_quantity(
+            q = self._loader.get_named_quantity(
                 self._quantity_name).astype(np.float32)
-            q = self._mass * qty
+            if buffer_name == "mass_and_quantity":
+                q = self._mass * q
         return np.stack([self._mass, q], axis=1)
 
     # -- presorted state --------------------------------------------------------
@@ -100,6 +103,29 @@ class ParticleStore:
         """(x, y, z, h) as (n_groups, pad_group) device matrices."""
         self.ensure_presorted()
         return self._state["fields"]
+
+    @property
+    def pos_smooth_presorted(self) -> torch.Tensor:
+        """(n_out, 4) presorted positions and smoothing, a transposed view of
+        one stacked copy of the fields (built on first use)."""
+        self.ensure_presorted()
+        flat = self._state.get("pos_smooth_flat")
+        if flat is None:
+            flat = torch.stack([f.reshape(-1) for f in self._state["fields"]])
+            self._state["pos_smooth_flat"] = flat
+        return flat.t()
+
+    def presorted_values_for(self, buffer_name: str) -> torch.Tensor:
+        """(n_out, C) presorted channel values, a transposed view of the
+        channel-major values."""
+        vals = self.presorted_values_cm_for(buffer_name)
+        return vals.reshape(vals.shape[0], -1).t()
+
+    @property
+    def presorted_buckets(self) -> torch.Tensor:
+        """(n_out,) int32 smoothing bucket of every presorted slot."""
+        self.ensure_presorted()
+        return self._state["buckets"]
 
     @property
     def presorted_group_buckets(self) -> torch.Tensor:

@@ -1,0 +1,243 @@
+"""Occlusion (surface) renderer: front-most-fragment semantics.
+
+Counterpart of ``SurfaceSPHRenderer`` in ``topsy_tpu/render/surface.py`` for
+the EXPORT path: particles above a density-percentile cut render as
+hemispheres with a greater-compare depth test; the output channels are
+(quantity value, surface depth).  ``render(DrawReason.EXPORT)`` activates
+the columns progression (as the reference does even for EXPORT), plans the
+exact dense giant layer, and renders the whole column range through
+``zsplat_atlas`` in group-axis chunks of at most
+``config.SPLAT_COLUMNS_GROUP_CAP`` groups, combined by max-compositing.  The
+photometric mass scale is unity.  CHANGE / REFINE frames (interactive column
+LOD) are ROADMAP item M9.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import config
+from ..drawreason import DrawReason
+from ..ops import splat, splat_atlas, splat_giant, zsplat, zsplat_atlas
+from ..ops.splat_accum import SUBGROUPS
+from .sph import SPHRenderer
+from .store import ParticleStore
+
+
+def _render_block_columns_surface(pos_smooth, values, buckets, cell_ids,
+                                  cell_table, matrix, scale, density_cut,
+                                  col0: int, giant_bucket: int, *,
+                                  resolution: int, width: int,
+                                  pad_group: int):
+    """Column-slice z-buffered render through ``zsplat_atlas``: columns
+    [col0, col0 + width) of the (groups x pad_group) presorted matrix, each
+    original group kept as its own group (``group=width``), split into
+    group-axis chunks of ``config.SPLAT_COLUMNS_GROUP_CAP`` groups whose
+    images are max-composited and whose dropped counts are summed.
+    ``cell_table`` (None = no culling) masks unselected cells."""
+    n_pad = pos_smooth.shape[0]
+    ngr = n_pad // pad_group
+    c0 = min(max(int(col0), 0), pad_group - width)
+
+    def slice_cols(arr):
+        if width == pad_group:
+            return arr
+        tail = arr.shape[1:]
+        a = arr.reshape((ngr, pad_group) + tail)[:, c0:c0 + width]
+        return a.reshape((ngr * width,) + tail)
+
+    mask = None if cell_table is None else cell_table[slice_cols(cell_ids)
+                                                      .long()]
+    if width == pad_group:
+        group = subgroups = None  # the standard full-width grouping
+        g_eff = 512
+    else:
+        group = width
+        subgroups = min(64, SUBGROUPS * (pad_group // width))
+        g_eff = width
+    ps_s = slice_cols(pos_smooth)
+    vals_s = slice_cols(values)
+    bks_s = slice_cols(buckets)
+
+    def launch(sl):
+        return zsplat_atlas.zsplat_atlas(
+            ps_s[sl], vals_s[sl], matrix, resolution, scale, bks_s[sl],
+            density_cut=density_cut,
+            extra_mask=None if mask is None else mask[sl],
+            giants=giant_bucket, group=group, subgroups=subgroups,
+            spill_group_cap=4 * config.SPLAT_SPILL_GROUP_CAP, t3_cap=4096)
+
+    im, dropped = None, 0
+    for sl in column_chunks(ps_s.shape[0], g_eff):
+        im_p, d_p = launch(sl)
+        im = im_p if im is None else _max_composite(im, im_p)
+        dropped = dropped + d_p
+    return im, dropped
+
+
+def column_chunks(n_rows: int, g_eff: int) -> list[slice]:
+    """The row slices of the group-axis chunks of a column launch."""
+    chunk_rows = config.SPLAT_COLUMNS_GROUP_CAP * g_eff
+    if n_rows <= chunk_rows:
+        return [slice(None)]
+    return [slice(r0, min(r0 + chunk_rows, n_rows))
+            for r0 in range(0, n_rows, chunk_rows)]
+
+
+def _render_giant_layer_surface(pos_smooth, values, buckets, cell_ids,
+                                cell_table, matrix, scale, density_cut, *,
+                                resolution: int):
+    """Exact dense hemisphere layer for the giant splats
+    (``splat_giant.zsplat_giant_image``): full support, true-h profile."""
+    pyramid = splat_atlas.default_pyramid(resolution)
+    cx, cy, z01, h_px, visible = splat.project(pos_smooth, matrix,
+                                               resolution, scale)
+    px_per_world = resolution / (2.0 * scale)
+    lev = splat.levels_from_buckets(buckets, px_per_world,
+                                    pyramid.num_levels)
+    h_l = h_px * splat.exp2_int(-lev)
+    mass, qty = values[:, 0], values[:, 1]
+    h_world = pos_smooth[:, 3]
+    hw = torch.clamp(h_world, min=1e-30)
+    rho = mass / (hw * hw * hw)
+    active = (visible & (rho > density_cut) & cell_table[cell_ids.long()]
+              & (h_l > splat_giant.GIANT_H))
+    h_clip_half = h_world / scale * 0.5
+    return splat_giant.zsplat_giant_image(cy, cx, h_px, z01, h_clip_half,
+                                          qty, active, resolution)
+
+
+def _max_composite(a, b):
+    """Combine two (value, depth) maps keeping the front-most fragment."""
+    front = b[..., 1] > a[..., 1]
+    return torch.where(front[..., None], b, a)
+
+
+class SurfaceSPHRenderer(SPHRenderer):
+    """Front-most surface renderer with a density cut."""
+
+    _buffer_name = "surface_values"  # (mass, raw quantity)
+    _rho_percentiles_num_samples = 101
+
+    def __init__(self, store: ParticleStore, render_progression,
+                 resolution: int):
+        super().__init__(store, render_progression, resolution)
+        loader = store._loader
+        self._percentile_to_den_cut = zsplat.density_cut_percentiles(
+            loader.get_mass(), loader.get_smooth(),
+            self._rho_percentiles_num_samples)
+        lo, hi = self.get_density_cut_percentile_range()
+        self._cut_val = 0.5 * (lo + hi)
+        self._surface_giant_layer = None
+
+    # -- density cut API -----------------------------------------------------------
+
+    def get_density_cut_percentile(self):
+        return self._cut_val
+
+    def set_density_cut_percentile(self, value):
+        self._cut_val = value
+
+    def get_density_cut_percentile_range(self):
+        return 0.0, 100.0
+
+    def _density_cut_value(self) -> float:
+        i = int(self._cut_val / 100.0
+                * (self._rho_percentiles_num_samples - 1))
+        return float(self._percentile_to_den_cut[i])
+
+    # -- render ----------------------------------------------------------------------
+
+    def render(self, draw_reason=DrawReason.CHANGE):
+        if draw_reason == DrawReason.PRESENTATION_CHANGE:
+            return
+        if draw_reason != DrawReason.EXPORT:
+            raise NotImplementedError(
+                f"{draw_reason}: the PyTorch port renders EXPORT frames only; "
+                "the interactive LOD path is ROADMAP item M9")
+        # the reference activates the columns progression for EXPORT too
+        if not self._maybe_activate_columns(DrawReason.CHANGE):
+            raise NotImplementedError("a presort layout without column "
+                                      "slicing (the scatter fallback) is "
+                                      "not ported")
+        prog = self._render_progression
+        prog.select_sphere(-np.asarray(self.position_offset), self.scale * 1.2)
+        self._refresh_cell_table()
+
+        matrix = self._matrix().astype(np.float32)
+        scale = np.float32(self.scale)
+        cut = np.float32(self._density_cut_value())
+        self._prepare_surface_giants(matrix, scale, cut)
+
+        prog.start_frame(draw_reason)
+        first_block = True
+        while (block := prog.get_block(
+                self._render_timer.total_time_in_frame())) is not None:
+            starts, lens = block
+            for s, l in zip(starts, lens):
+                if l > 0:
+                    first_block = self._render_columns_surface(
+                        matrix, scale, cut, s, l, first_block)
+            prog.end_block(self._render_timer.total_time_in_frame())
+        layer = self._surface_giant_layer
+        if layer is not None:
+            with self._render_timer:
+                self._image = (layer if self._image is None
+                               else _max_composite(self._image, layer))
+        self._finish_frame(prog)
+        self.last_render_mass_scale = 1.0  # max semantics need no rescale
+
+    def _prepare_surface_giants(self, matrix, scale, cut):
+        """Per-view giant planning: the bucket exclusion threshold of the
+        windowed column slices and the exact dense hemisphere layer."""
+        store = self._store
+        num_levels = splat_atlas.default_pyramid(self._resolution).num_levels
+        size, b_thresh = splat_giant.giant_plan(
+            store.giant_meta(), self._resolution, float(self.scale),
+            num_levels)
+        self._giant_bucket = b_thresh
+        if size == 0:
+            self._surface_giant_layer = None
+            return
+        with self._render_timer:
+            cand = store.giant_candidates(size)
+            self._surface_giant_layer = _render_giant_layer_surface(
+                cand["pos"], store.giant_values_for(self._buffer_name, size),
+                cand["buckets"], cand["cell_ids"], self._cell_table, matrix,
+                scale, cut, resolution=self._resolution)
+
+    def _render_columns_surface(self, matrix, scale, cut, col0: int,
+                                ncols: int, first_block: bool) -> bool:
+        """One column launch over columns [col0, col0 + ncols) of the main
+        presort layout (the host layout has no decimation tiers)."""
+        store = self._store
+        culling = self._render_progression.get_selected_cell_mask() is not None
+        with self._render_timer:
+            im, dropped = _render_block_columns_surface(
+                store.pos_smooth_presorted,
+                store.presorted_values_for(self._buffer_name),
+                store.presorted_buckets,
+                store.cell_ids_presorted if culling else None,
+                self._cell_table if culling else None,
+                matrix, scale, cut, col0, int(self._giant_bucket),
+                resolution=self._resolution, width=ncols,
+                pad_group=store.presorted_layout.pad_group)
+            self._dropped_splats = dropped
+            if first_block:
+                self._image = im
+                first_block = False
+            else:
+                self._image = _max_composite(self._image, im)
+        return first_block
+
+    @property
+    def last_dropped_splats(self) -> int:
+        """Splats dropped by the bounded spill tiers in the last column
+        launch, summed over its group-axis chunks."""
+        d = self._dropped_splats
+        return 0 if d is None else int(d)
+
+    def get_image(self) -> np.ndarray:
+        """No photometric rescaling."""
+        return self._get_image_unscaled()

@@ -1,12 +1,13 @@
 """The Visualizer: loader, store, renderer, colormap, overlays and canvas.
 
 Counterpart of ``VisualizerBase`` in ``topsy_tpu/visualizer.py`` for the
-univariate EXPORT path: ``get_sph_image``, ``get_sph_presentation_image``,
-``get_presentation_image`` and ``draw(DrawReason.EXPORT, target=...)``,
-with the ``scale`` / ``rotation_matrix`` / ``position_offset`` /
-``quantity_name`` properties.  The device is explicit: ``device="cuda"``
-(the default) needs a GPU and raises without one; tests pass ``"cpu"``.
-The canvas and overlays are the reference's jax-free classes; the colorbar
+univariate and surface EXPORT paths: ``get_sph_image``,
+``get_sph_presentation_image``, ``get_presentation_image`` and
+``draw(DrawReason.EXPORT, target=...)``, with the ``render_mode`` /
+``scale`` / ``rotation_matrix`` / ``position_offset`` / ``quantity_name``
+properties.  The device is explicit: ``device="cuda"`` (the default) needs
+a GPU and raises without one; tests pass ``"cpu"``.  The canvas and
+overlays are the port's copies of the reference's classes; the colorbar
 (which needs matplotlib) is built on first use.  ``OffscreenCanvas`` and
 ``DrawReason`` are re-exported here for callers of the port.
 """
@@ -18,16 +19,15 @@ import logging
 import numpy as np
 import torch
 
-from topsy_tpu import config
-from topsy_tpu.canvas import OffscreenCanvas
-from topsy_tpu.drawreason import DrawReason
-from topsy_tpu.overlays.scalebar import ScalebarOverlay
-from topsy_tpu.overlays.text import TextOverlay
-
+from . import config
+from .canvas import OffscreenCanvas
 from .color import ColormapHolder
 from .color.maps import fit_to_window
+from .drawreason import DrawReason
 from .loaders import AbstractDataLoader, TestDataLoader
-from .render import sph
+from .overlays.scalebar import ScalebarOverlay
+from .overlays.text import TextOverlay
+from .render import sph, surface
 from .render.store import ParticleStore
 
 logger = logging.getLogger(__name__)
@@ -54,10 +54,8 @@ class VisualizerBase:
                  canvas_class=None,
                  render_mode="univariate",
                  device="cuda"):
-        if render_mode not in (None, "univariate"):
-            raise NotImplementedError(
-                f"render_mode {render_mode!r}: the PyTorch port renders "
-                "'univariate' only (ROADMAP items M10, M11)")
+        self._validate_render_mode(render_mode)
+        self._render_mode = render_mode or "univariate"
         if periodic_tiling:
             raise NotImplementedError("periodic tiling is ROADMAP item M12")
         self.device = resolve_device(device)
@@ -88,6 +86,28 @@ class VisualizerBase:
                                    color=(1, 1, 1, 1))
         self._scalebar = ScalebarOverlay(self)
 
+    @staticmethod
+    def _validate_render_mode(render_mode):
+        if render_mode not in (None, "univariate", "surface"):
+            raise NotImplementedError(
+                f"render_mode {render_mode!r}: the PyTorch port renders "
+                "'univariate' and 'surface' only (bivariate and RGB are "
+                "ROADMAP item M10)")
+
+    @staticmethod
+    def _renderer_class_for_mode(render_mode):
+        if render_mode == "surface":
+            return surface.SurfaceSPHRenderer
+        return sph.SPHRenderer
+
+    def _colormap_parameters_for_mode(self, render_mode):
+        params = {"weighted_average": self.quantity_name is not None}
+        if render_mode == "surface":
+            params.update({"type": "surface"})
+        else:
+            params.update({"type": "density"})
+        return params
+
     def _initialize_sph_and_colormap_and_bar(self, colormap_name=None):
         if self._sph is not None:
             old_rotation = self._sph.rotation_matrix
@@ -96,8 +116,9 @@ class VisualizerBase:
         else:
             old_rotation = old_position = old_scale = None
         progression = self.data_loader.get_render_progression()
-        self._sph = sph.SPHRenderer(self.store, progression,
-                                    self._render_resolution)
+        renderer_class = self._renderer_class_for_mode(self._render_mode)
+        self._sph = renderer_class(self.store, progression,
+                                   self._render_resolution)
         self.reset_view(rotation_matrix=old_rotation,
                         position_offset=old_position, scale=old_scale)
         self.invalidate()
@@ -111,16 +132,17 @@ class VisualizerBase:
         self._initialize_colormap_and_bar()
 
     def _initialize_colormap_and_bar(self):
-        params = {"weighted_average": self.quantity_name is not None,
-                  "type": "density"}
-        changed_type = self._colormap.update_parameters(params)
+        changed_type = self._colormap.update_parameters(
+            self._colormap_parameters_for_mode(self._render_mode))
         params = self._colormap.get_parameters()
         if (changed_type or params.get("vmin") is None
                 or params.get("vmax") is None):
             logger.info("Autoranging colormap parameters")
             self._colormap.autorange(self._sph.get_image_device())
         self._colorbar = None
-        self._colorbar_wanted = True
+        self._colorbar_wanted = (
+            params["type"] != "surface"
+            or bool(params.get("weighted_average")))
 
     def _get_colorbar_label(self):
         label = self.data_loader.get_quantity_label(self.quantity_name)
@@ -130,7 +152,7 @@ class VisualizerBase:
 
     def _colorbar_overlay(self):
         if self._colorbar is None and self._colorbar_wanted:
-            from topsy_tpu.overlays.colorbar import ColorbarOverlay
+            from .overlays.colorbar import ColorbarOverlay
             params = self._colormap.get_parameters()
             self._colorbar = ColorbarOverlay(self, params["vmin"],
                                              params["vmax"],
@@ -143,6 +165,19 @@ class VisualizerBase:
     @property
     def colormap(self) -> ColormapHolder:
         return self._colormap
+
+    @property
+    def render_mode(self) -> str:
+        return self._render_mode
+
+    @render_mode.setter
+    def render_mode(self, value):
+        """Switch modes: a new renderer and colormap over the same store
+        (the presort is reused)."""
+        self._validate_render_mode(value)
+        self._render_mode = value or "univariate"
+        self._initialize_sph_and_colormap_and_bar()
+        self.invalidate(DrawReason.CHANGE)
 
     @property
     def rotation_matrix(self):
@@ -255,9 +290,10 @@ class VisualizerBase:
     # -- image access ----------------------------------------------------------------
 
     def get_sph_image(self) -> np.ndarray:
-        """Logical SPH content (no colormap)."""
+        """Logical SPH content (no colormap), post-processed on the
+        renderer's device."""
         return self._colormap.sph_raw_output_to_content(
-            np.asarray(self._sph.get_image()))
+            self._sph.get_image_device())
 
     def get_sph_presentation_image(self) -> np.ndarray:
         """Colormapped SPH image, no overlays, (res, res, 4) uint8."""
