@@ -20,6 +20,11 @@ surface EXPORT path and checks its (value, depth) image against the port's
 scatter-max ground truth.  It prints:
 
 * the card's name and power limit (nvidia-smi);
+* ptxas' registers, stack and spills for every K2 kernel instantiation;
+* per K2 call its groups by (kind, size class), the atlas entries it
+  deposits, how many are nonzero and how many float4 reductions carry
+  them, its bound (bytes, bf16 and float32 operations), and for the main
+  pass and tier 2 the runs of consecutive groups sharing a window;
 * one ``{"kernels": [...]}`` JSON line: per kernel its launches during its
   path's EXPORT frames, its largest difference from the plain version, the
   kernel's and the plain version's time, the bound (the least time the
@@ -61,6 +66,14 @@ K3_OPS_PER_HIT = 4
 # 18), level and norm polynomial (degree 12, 24), anchors, fits and
 # coefficients (about 18)
 K1_OPS_PER_SLOT = 60
+# float32 operations of K2's profiles per (row or column, live particle):
+# inside the particle's support two degree-6 Horner evaluations, 12 fused
+# multiply-adds (a fused multiply-add counts 2); outside it, where t2 is
+# clamped to 4 and the profiles are constants, one select; a tiny
+# particle's hat 1 - |d| clipped at 0
+K2_OPS_PER_POLY_LINE = 24
+K2_OPS_PER_CLAMPED_LINE = 1
+K2_OPS_PER_HAT_LINE = 3
 # the surface frames: the default density cut (the 50th percentile) and
 # the lowest one, which keeps every particle and covers much of the image
 SURFACE_CUTS = (("cut50", 50.0), ("cut0", 0.0))
@@ -102,30 +115,245 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def build_scene(dev):
+    """The smoke scene, ``bench.py``'s: the seeded 2^24-particle
+    TestDataLoader snapshot at 1024x1024, (density, mass * quantity), scale
+    200, through ``Visualizer(..., device=dev)``, one EXPORT frame
+    rendered.  Returns the Visualizer."""
+    from topsy_tpu_torch.loaders import TestDataLoader
+    from topsy_tpu_torch.visualizer import (DrawReason, OffscreenCanvas,
+                                            Visualizer)
+    vis = Visualizer(data_loader_class=TestDataLoader,
+                     data_loader_args=(N_PARTICLES,),
+                     data_loader_kwargs={"seed": 1337},
+                     render_resolution=RESOLUTION,
+                     canvas_class=OffscreenCanvas, device=dev)
+    vis.show_status = False
+    vis.quantity_name = "test-quantity"
+    vis.scale = 200.0
+    vis._sph.render(DrawReason.EXPORT)
+    return vis
+
+
+def feed_args(vis, piece):
+    """K1's (args, kwargs) for one piece, exactly as the renderer feeds
+    it."""
+    import numpy as np
+    from topsy_tpu_torch.ops import splat_atlas
+    sph, store = vis._sph, vis.store
+    return splat_atlas.feed_call(
+        store.presorted_fields(),
+        store.presorted_values_cm_for(sph._buffer_name),
+        sph._matrix().astype(np.float32), RESOLUTION, np.float32(sph.scale),
+        store.presorted_group_buckets, mask=sph._feed_cull_mask(),
+        piece=piece, bucket_thresh=sph._giant_bucket)
+
+
+def k2_calls(feed_out, G, atlas_rows, atlas_cols):
+    """({shape: K2 kwargs}, dropped) for the K2 calls that follow one
+    feed: the main pass, spill tiers 2 and 3 and the forced stragglers.
+    When every spilled particle fits its tier-2 window, the scene's tier-3
+    call deposits nothing; a zero-row tier-2 window makes every gathered
+    spilled particle a straggler, so the one-particle shape also runs on
+    real anchors."""
+    from topsy_tpu_torch.ops import splat_atlas
+    common = dict(C=2, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols)
+    main_kw, tier2_kw, tier3_kw, dropped = splat_atlas.deposit_calls(
+        feed_out, **common)
+    _, _, stragglers_kw, _ = splat_atlas.deposit_calls(
+        feed_out, window_rows=0, **common)
+    stragglers_kw["window_rows"] = splat_atlas.PRESORTED_WINDOW_ROWS
+    return {"main": main_kw, "tier2": tier2_kw, "tier3": tier3_kw,
+            "tier3_stragglers": stragglers_kw}, dropped
+
+
 def k2_work(kw):
-    """(bytes, bf16 FLOP) of one K2 call: every input read once, the atlas
-    read and written once; 2 (C rows_eval) cols_eval (2 G) per active
-    group."""
+    """(bytes, bf16 FLOP, float32 FLOP) that one K2 call needs on this
+    run's data.  Bytes: every input read once, the atlas read and written
+    once.  Over the groups that deposit (the reference's dispatch rule) and
+    their live particles (a nonzero coefficient): the bf16 product,
+    2 (C rows_eval) cols_eval (rank n_live), rank 1 for ALL_TINY groups
+    (every entry of a rectangle is nonzero in float32: the profiles'
+    tails, phase K2); the float32 profiles, per row or column of the
+    rectangle and live particle: for a tiny particle the hat
+    (K2_OPS_PER_HAT_LINE), else, where the line lies inside the particle's
+    support (d^2 ih^2 < 4, and inside the footprint for MASKED groups), two
+    degree-6 Horner evaluations of fused multiply-adds
+    (K2_OPS_PER_POLY_LINE), and outside it a select of the clamped
+    constant (K2_OPS_PER_CLAMPED_LINE)."""
+    import torch
     from topsy_tpu_torch.ops import splat_accum as sa
-    flags = kw["flags"].cpu().numpy()
-    C, G = kw["C"], kw["group"]
+    flags, C, G = kw["flags"], kw["C"], kw["group"]
+    dev = flags.device
     n = flags.shape[0]
     win = kw.get("window_cols", sa.WINDOW_COLS)
     prof = sa.PROFILE_COLS if win == sa.WINDOW_COLS else win
     rolled = prof != win
+    cbase = kw["ce"] if rolled else kw["c0"]
+    ay, ax, ih = (kw[k].reshape(n, G) for k in ("ay_g", "ax_g", "ih_g"))
+    live = (sa._coef_channels(kw["coef_g"], C, n, G) != 0).any(dim=0)
     kind, sz = flags // 4, flags % 4
-    ops = 0.0
-    for k in range(1, 5):
-        for c in range(4):
-            cnt = int(((kind == k) & (sz == c)).sum())
-            if not cnt:
-                continue
-            cls = c if rolled and k in (1, 2) else sa.FULL_CLASS
-            r, w = sa._extents(cls, kw["window_rows"], prof)
-            ops += cnt * 2.0 * (C * r) * w * (2 * G)
+    bf16 = f32 = 0.0
+    for k in range(sa.FLAG_ALL_TINY, sa.FLAG_MASKED + 1):
+        for c in range(len(sa.SIZE_CLASSES)):
+            if c != sa.FULL_CLASS and not (rolled and k <= sa.FLAG_POLY):
+                continue                           # deposits nothing
+            sel = torch.nonzero((kind == k) & (sz == c)).flatten()
+            r, w = sa._extents(c, kw["window_rows"], prof)
+            rank = 1 if k == sa.FLAG_ALL_TINY else 2
+            for s in range(0, sel.numel(), 256):
+                g = sel[s:s + 256]
+                lv = live[g]
+                bf16 += 2.0 * (C * r) * w * rank * int(lv.sum())
+                tiny = ih[g] < 0 if k != sa.FLAG_ALL_TINY else \
+                    torch.ones_like(lv)
+                f32 += K2_OPS_PER_HAT_LINE * (r + w) * int((lv & tiny).sum())
+                poly = (lv & ~tiny)[:, None, :]
+                for lines, base, pos in ((r, kw["w0"][g], ay[g]),
+                                         (w, cbase[g], ax[g])):
+                    d = ((base[:, None].float() + torch.arange(
+                        lines, device=dev, dtype=torch.float32))[:, :, None]
+                        - pos[:, None, :])               # (B, lines, G)
+                    inside = d * d * (ih[g] * ih[g])[:, None, :] < sa.SUPPORT2
+                    if k == sa.FLAG_MASKED:
+                        inside &= (d > -sa.FOOT) & (d <= sa.FOOT)
+                    n_in = int((inside & poly).sum())
+                    f32 += (K2_OPS_PER_POLY_LINE * n_in
+                            + K2_OPS_PER_CLAMPED_LINE
+                            * (lines * int(poly.sum()) - n_in))
     nbytes = n * G * (3 + C) * 4 + n * 16 + 2 * C * kw["atlas_rows"] * \
         kw["atlas_cols"] * 4
-    return nbytes, ops
+    return nbytes, bf16, f32
+
+
+def k2_bound(kw):
+    """(bound_ms, bound_by, detail): the largest of bytes over the memory
+    rate, bf16 operations over the tensor cores' rate and float32
+    operations over the float32 rate."""
+    nbytes, bf16, f32 = k2_work(kw)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "bf16 operations": bf16 / BF16_OPS_PER_S * 1e3,
+             "float32 operations": f32 / F32_OPS_PER_S * 1e3}
+    top = max(times, key=times.get)
+    detail = ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+    return times[top], "bytes" if top == "bytes" else "operations", \
+        f"{detail} ({top})"
+
+
+def ptxas_resources(log_text: str):
+    """(kernel, 'registers, shared memory, spills') per function of an
+    ``nvcc -Xptxas -v`` log; K2's class kernels as <C, rows, columns>."""
+    import re
+    out, name = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"deposit_class_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                          m.group(1))
+            name = (f"deposit_class_kernel<C={t[1]}, rows={t[2]}, "
+                    f"cols={t[3]}>" if t else
+                    re.sub(r".*_cu_\w{8}\d+(\w+?)E.*", r"\1", m.group(1)))
+            out.append([name, []])
+        elif name and ("spill" in line or "registers" in line):
+            out[-1][1].append(line.replace("ptxas info    :", "").strip())
+    return [(n, "; ".join(r)) for n, r in out]
+
+
+K2_KINDS = {1: "tiny", 2: "poly", 3: "mixed", 4: "masked"}
+
+
+def k2_census(kw):
+    """What one K2 call deposits: its groups by (kind, size class) as the
+    flags give them, and over the groups that deposit (the reference's
+    dispatch rule), the in-bounds entries of their rectangles, how many of
+    those are nonzero (a scalar atomic add each, in a design that skips
+    zeros) and how many four-column quads aligned to the atlas hold a
+    nonzero entry (a float4 reduction each in K2).  The product is the
+    plain version's (bf16 operands, f32 sums)."""
+    import torch
+    from topsy_tpu_torch.ops import kernels
+    from topsy_tpu_torch.ops import splat_accum as sa
+    flags, C, G = kw["flags"], kw["C"], kw["group"]
+    dev = flags.device
+    n = flags.shape[0]
+    win = kw.get("window_cols", sa.WINDOW_COLS)
+    prof = sa.PROFILE_COLS if win == sa.WINDOW_COLS else win
+    rolled = prof != win
+    cbase = kw["ce"] if rolled else kw["c0"]
+    ay, ax, ih = (kw[k].reshape(n, G) for k in ("ay_g", "ax_g", "ih_g"))
+    coef = sa._coef_channels(kw["coef_g"], C, n, G)
+    lrk = kernels.lowrank_kernel()
+    hist, entries, nonzero, quads = {}, 0, 0, 0
+    for kind, kname in K2_KINDS.items():
+        for sz in range(4):
+            sel = torch.nonzero(flags == kind * 4 + sz).flatten()
+            if sel.numel() == 0:
+                continue
+            hist[f"{kname}/{sz}"] = sel.numel()
+            if sz != sa.FULL_CLASS and not (rolled and kind in (1, 2)):
+                continue                          # deposits nothing
+            R, W = sa._extents(sz, kw["window_rows"], prof)
+            for s in range(0, sel.numel(), 256):
+                g = sel[s:s + 256]
+                rows = kw["w0"][g].long()[:, None] + torch.arange(R, device=dev)
+                cols = cbase[g].long()[:, None] + torch.arange(W, device=dev)
+                ok_r = (rows >= 0) & (rows < kw["atlas_rows"])
+                ok_c = (cols >= 0) & (cols < kw["atlas_cols"])
+                entries += C * int((ok_r.sum(1) * ok_c.sum(1)).sum())
+                ihb = ih[g][:, None, :]
+                P = sa._profiles(rows.float()[:, :, None] - ay[g][:, None, :],
+                                 ihb, kind, lrk, True, sa.FOOT)
+                Q = sa._profiles(cols.float()[:, :, None] - ax[g][:, None, :],
+                                 ihb, kind, lrk, False, sa.FOOT)
+                B, K = g.numel(), P.shape[1]
+                pc = (P[:, :, None] * coef[:, g].permute(1, 0, 2)[
+                    :, None, :, None, :]).bfloat16().float()
+                a = pc.permute(0, 2, 3, 1, 4).reshape(B, C * R, K * G)
+                b = Q.bfloat16().float().permute(0, 2, 1, 3).reshape(
+                    B, W, K * G)
+                out = torch.bmm(a, b.transpose(1, 2)).reshape(B, C, R, W)
+                nz = ((out != 0) & ok_r[:, None, :, None]
+                      & ok_c[:, None, None, :]).float()
+                nonzero += int(nz.sum())
+                shift = (cols[:, :1] % 4) + torch.arange(W, device=dev)
+                aligned = torch.zeros((B, C, R, W + 8), device=dev)
+                aligned.scatter_(3, shift[:, None, None, :].expand_as(nz), nz)
+                quads += int(aligned.view(B, C, R, -1, 4).amax(-1).sum())
+    return hist, entries, nonzero, quads
+
+
+def anchor_runs(kw):
+    """Lengths of the runs of consecutive depositing groups (in group
+    order) that share their window anchor (w0, c0), and of those that
+    share their exact deposit base (w0, ce)."""
+    import torch
+    flags = kw["flags"]
+    kind, sz = flags // 4, flags % 4
+    dep = (kind > 0) & ((sz == 3) | (kind <= 2))
+    out = {}
+    for name, key in (("w0,c0", kw["c0"]), ("w0,ce", kw["ce"])):
+        w0, c = kw["w0"][dep], key[dep]
+        if w0.numel() == 0:
+            out[name] = []
+            continue
+        new = torch.ones_like(w0, dtype=torch.bool)
+        new[1:] = (w0[1:] != w0[:-1]) | (c[1:] != c[:-1])
+        starts = torch.nonzero(new).flatten()
+        ends = torch.cat([starts[1:], starts.new_tensor([w0.numel()])])
+        out[name] = (ends - starts).tolist()
+    return out
+
+
+def run_summary(lengths):
+    import numpy as np
+    if not lengths:
+        return "no depositing groups"
+    a = np.asarray(lengths)
+    tot = a.sum()
+    return (f"{a.size} runs over {tot} groups, mean {a.mean():.3f}, median "
+            f"{np.median(a):.0f}, max {a.max()}; groups in runs >= 2: "
+            f"{a[a >= 2].sum() / tot:.3f}, >= 4: {a[a >= 4].sum() / tot:.3f}"
+            f", >= 8: {a[a >= 8].sum() / tot:.3f}")
 
 
 def k3_work(kw, keys):
@@ -190,16 +418,14 @@ def main() -> int:
     dev = torch.device("cuda")
 
     import topsy_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
-    from topsy_tpu_torch.loaders import TestDataLoader
-    from topsy_tpu_torch.ops import (cuda_build, splat, splat_accum,
+    from topsy_tpu_torch.ops import (cuda_build, kernels, splat, splat_accum,
                                      splat_atlas, splat_feed, zsplat,
                                      zsplat_accum, zsplat_atlas)
     from topsy_tpu_torch import config as cfg
     from topsy_tpu_torch.ops.smooth import smooth_image
     from topsy_tpu_torch.ops.splat_giant import BUCKET_DISABLED, GIANT_H
     from topsy_tpu_torch.render import surface
-    from topsy_tpu_torch.visualizer import (DrawReason, OffscreenCanvas,
-                                            Visualizer)
+    from topsy_tpu_torch.visualizer import DrawReason
 
     # ---- phase 1: the card -------------------------------------------------
     card = subprocess.run(
@@ -226,19 +452,13 @@ def main() -> int:
     log(f"phase build: {time.perf_counter() - t0:.2f} s "
         "(nvcc for csrc/splat_accum.cu and csrc/zsplat_accum.cu in "
         "parallel, then Triton JIT)")
+    for name, res in ptxas_resources(cuda_build.build_logs["splat_accum"]):
+        log(f"ptxas K2 {name}: {res}")
 
     # ---- phase 3: the scene ------------------------------------------------
     t0 = time.perf_counter()
-    vis = Visualizer(data_loader_class=TestDataLoader,
-                     data_loader_args=(N_PARTICLES,),
-                     data_loader_kwargs={"seed": 1337},
-                     render_resolution=RESOLUTION,
-                     canvas_class=OffscreenCanvas, device=dev)
-    vis.show_status = False
-    vis.quantity_name = "test-quantity"
-    vis.scale = 200.0
+    vis = build_scene(dev)
     sph = vis._sph
-    sph.render(DrawReason.EXPORT)
     torch.cuda.synchronize()
     store = vis.store
     G = store.presorted_layout.pad_group
@@ -253,19 +473,20 @@ def main() -> int:
     # ---- phases 4-5: each kernel against its plain version, every piece ----
     matrix = sph._matrix().astype(np.float32)
     scale = np.float32(sph.scale)
-    fields = store.presorted_fields()
-    values = store.presorted_values_cm_for(sph._buffer_name)
-    pyramid = splat.default_pyramid(RESOLUTION)
-    _, atlas_rows, atlas_cols = splat_atlas.atlas_layout(pyramid)
+    _, atlas_rows, atlas_cols = splat_atlas.atlas_layout(
+        splat.default_pyramid(RESOLUTION))
+    lrk = kernels.lowrank_kernel()
+    tails = [float(splat_accum._horner(c, torch.tensor([splat_accum.SUPPORT2])))
+             for c in lrk.coeffs]
+    log(f"K2 profile tails p_k(t2 = {splat_accum.SUPPORT2}) in float32 "
+        f"fused Horner steps: {tails} (nonzero: every entry of an active "
+        "POLY rectangle is nonzero)")
     feed_err, accum_err = 0.0, 0.0
     feed_ms = feed_plain_ms = feed_bound = None
     accum_ms, accum_plain_ms, accum_bound = {}, {}, {}
     for i, piece in enumerate(pieces):
         # K1, exactly as the renderer feeds this piece
-        fargs, fkw = splat_atlas.feed_call(
-            fields, values, matrix, RESOLUTION, scale,
-            store.presorted_group_buckets, mask=sph._feed_cull_mask(),
-            piece=piece, bucket_thresh=sph._giant_bucket)
+        fargs, fkw = feed_args(vis, piece)
         out_k = splat_feed.splat_feed_triton(*fargs, **fkw)
         out_p = splat_feed.splat_feed_plain(*fargs, **fkw)
         err = 0.0
@@ -301,19 +522,8 @@ def main() -> int:
                if i == 0 else ""))
 
         # K2 in the three call shapes that follow this feed
-        main_kw, tier2_kw, tier3_kw, dropped = splat_atlas.deposit_calls(
-            out_k, C=2, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols)
-        # When every spilled particle fits its tier-2 window, the scene's
-        # tier-3 call deposits nothing.  A zero-row tier-2 window makes every
-        # gathered spilled particle a straggler, so the one-particle shape is
-        # also held against the plain version on real anchors.
-        _, _, stragglers_kw, _ = splat_atlas.deposit_calls(
-            out_k, C=2, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols,
-            window_rows=0)
-        stragglers_kw["window_rows"] = splat_atlas.PRESORTED_WINDOW_ROWS
-        for shape, kw in (("main", main_kw), ("tier2", tier2_kw),
-                          ("tier3", tier3_kw),
-                          ("tier3_stragglers", stragglers_kw)):
+        calls, dropped = k2_calls(out_k, G, atlas_rows, atlas_cols)
+        for shape, kw in calls.items():
             a_k = splat_accum.accumulate_groups_cuda(**kw)
             a_p = splat_accum.accumulate_groups_plain(**kw)
             ref_max = a_p.abs().max().item()
@@ -334,12 +544,23 @@ def main() -> int:
                     lambda: splat_accum.accumulate_groups_cuda(**kw), 5)
                 accum_plain_ms[shape] = timed_ms(
                     lambda: splat_accum.accumulate_groups_plain(**kw), 2)
-                accum_bound[shape] = bound(*k2_work(kw), BF16_OPS_PER_S)
+                b_ms, b_by, b_detail = k2_bound(kw)
+                accum_bound[shape] = (b_ms, b_by)
                 timing = (f"; {accum_ms[shape]:.3f} ms (plain "
-                          f"{accum_plain_ms[shape]:.3f} ms)")
+                          f"{accum_plain_ms[shape]:.3f} ms); bound "
+                          f"{b_ms:.4f} ms = {b_detail}, "
+                          f"{b_ms / accum_ms[shape]:.1%} of it")
             log(f"phase K2 piece {piece} {shape}: ok; groups "
                 f"{kw['flags'].shape[0]} of {kw['group']} (active {active}); "
                 f"max|atlas| {ref_max:.4e}, max abs diff {err:.3e}{timing}")
+            hist, entries, nonzero, quads = k2_census(kw)
+            log(f"phase K2 piece {piece} {shape} census: groups by "
+                f"kind/class {hist}; deposited entries {entries}, nonzero "
+                f"{nonzero}, float4 reductions {quads}")
+            if shape in ("main", "tier2"):
+                for key, lengths in anchor_runs(kw).items():
+                    log(f"phase K2 piece {piece} {shape} runs sharing ({key}): "
+                        f"{run_summary(lengths)}")
         log(f"piece {piece} dropped {int(dropped.item())}")
         del out_k, out_p, a_k, a_p
 

@@ -39,7 +39,7 @@ ATLAS_COLS = 512
 WINDOW_ROWS = 96
 
 
-def _group(rng, kind, G, w0, cbase, rows_eval, cols_eval):
+def _group(rng, kind, G, w0, cbase, rows_eval, cols_eval, nc=C):
     ay = w0 + rng.uniform(1.0, rows_eval - 1.0, G)
     ax = cbase + rng.uniform(1.0, cols_eval - 1.0, G)
     poly = 1.0 / rng.uniform(0.71, 3.5, G)
@@ -55,33 +55,44 @@ def _group(rng, kind, G, w0, cbase, rows_eval, cols_eval):
         ih = np.where(r < 0.3, big, np.where(r < 0.5, -1.0, poly))
     else:
         ih = poly
-    coef = rng.normal(0.0, 1.0, (C, G))
+    coef = rng.normal(0.0, 1.0, (nc, G))
     coef[:, rng.random_sample(G) < 0.1] = 0.0   # some invisible particles
     if kind == FLAG_INACTIVE:
         coef[:] = 0.0
     return ay, ax, ih, coef
 
 
-def _build(specs, G, rolled, seed):
+def _build(specs, G, rolled, seed, nc=C, run=1, edges=False):
     """specs: list of (kind, size_class); returns numpy operands with flags
     from the reference's group_flags (the size class applies to TINY/POLY
-    groups only, as in the reference)."""
+    groups only, as in the reference).  ``run``: blocks of that many
+    consecutive groups share their anchors; ``edges``: every third block
+    is anchored where its rectangle crosses the atlas's bottom or right
+    edge."""
     rng = np.random.RandomState(seed)
     n = len(specs)
     ay = np.zeros((n, G)); ax = np.zeros((n, G)); ih = np.zeros((n, G))
-    coef = np.zeros((C, n, G))
+    coef = np.zeros((nc, n, G))
     w0 = np.zeros(n, np.int32); c0 = np.zeros(n, np.int32)
     ce = np.zeros(n, np.int32); sizes = np.zeros(n, np.int32)
     profile_cols = p_accum.PROFILE_COLS if rolled else ATLAS_COLS
     for g, (kind, sz) in enumerate(specs):
         rows_eval, cols_eval = p_accum._extents(sz, WINDOW_ROWS, profile_cols)
-        w0[g] = 8 * rng.randint(0, (ATLAS_ROWS - WINDOW_ROWS) // 8 + 1)
-        if rolled:
-            c0[g] = 128 * rng.randint(0, (ATLAS_COLS - 256) // 128 + 1)
-            ce[g] = c0[g] + rng.randint(0, 129)
+        if g % run:
+            w0[g], c0[g], ce[g] = w0[g - 1], c0[g - 1], ce[g - 1]
+        elif edges and (g // run) % 3 == 2:
+            w0[g] = ATLAS_ROWS - 8 * rng.randint(1, 5)
+            if rolled:
+                c0[g] = ATLAS_COLS - 256
+                ce[g] = ATLAS_COLS - rng.randint(1, 40)
+        else:
+            w0[g] = 8 * rng.randint(0, (ATLAS_ROWS - WINDOW_ROWS) // 8 + 1)
+            if rolled:
+                c0[g] = 128 * rng.randint(0, (ATLAS_COLS - 256) // 128 + 1)
+                ce[g] = c0[g] + rng.randint(0, 129)
         cbase = ce[g] if rolled else c0[g]
         ay[g], ax[g], ih[g], coef[:, g] = _group(rng, kind, G, w0[g], cbase,
-                                                 rows_eval, cols_eval)
+                                                 rows_eval, cols_eval, nc)
         sizes[g] = sz
     ay, ax, ih, coef = (a.astype(np.float32) for a in (ay, ax, ih, coef))
     flags = np.asarray(r_pallas.group_flags(
@@ -201,24 +212,136 @@ def test_wrapper_uses_plain_version_on_cpu():
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+@pytest.mark.parametrize("rolled", [True, False])
+def test_deposit_plan_matches_walk(rolled):
+    """The kernel's work list (groups that deposit, sorted stably by size
+    class) against a walk over the flags."""
+    rng = np.random.RandomState(8)
+    n = 300
+    flags = (rng.randint(0, 5, n) * 4 + rng.randint(0, 4, n)).astype(np.int32)
+    order, class_off = (t.numpy() for t in p_accum.deposit_plan(
+        torch.from_numpy(flags), rolled))
+    classes = [[] for _ in p_accum.SIZE_CLASSES]
+    for g, f in enumerate(flags.tolist()):
+        kind, sz = f // 4, f % 4
+        if FLAG_ALL_TINY <= kind <= FLAG_MASKED and (
+                sz == FULL_CLASS or (rolled and kind <= FLAG_POLY)):
+            classes[sz].append(g)
+    assert sorted(order.tolist()) == list(range(n))
+    assert class_off.shape == (len(classes) + 1,) and class_off[0] == 0
+    for k, members in enumerate(classes):
+        assert order[class_off[k]:class_off[k + 1]].tolist() == members
+    assert class_off[-1] == sum(map(len, classes))
+
+
+def _card_case(C_, G, rolled, seed):
+    """Every (kind, class) pairing (the ones that deposit nothing too), in
+    runs of three groups sharing a window, every third run at an atlas
+    edge."""
+    specs = [s for s in ALL_SIZED + [(FLAG_MIXED, 1)] for _ in range(3)]
+    window_cols = p_accum.WINDOW_COLS if rolled else ATLAS_COLS
+    ops = _build(specs, G, rolled, seed, nc=C_, run=3, edges=True)
+    return ops, dict(atlas_rows=ATLAS_ROWS, atlas_cols=ATLAS_COLS, C=C_,
+                     group=G, window_cols=window_cols,
+                     window_rows=WINDOW_ROWS)
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """K2 against the plain version on the card, in the three shapes."""
+@pytest.mark.parametrize("rolled", [True, False])
+@pytest.mark.parametrize("G", [1, 64, 512])
+@pytest.mark.parametrize("C_", [1, 2, 3, 4])
+def test_kernel_matches_plain_on_card(C_, G, rolled):
+    """K2 against the plain version on the card: every (kind, class)
+    pairing, C = 1..4, groups of 1, 64 and 512 particles, rolled (256-column
+    windows) and unrolled (full-width) launches, anchors clipped at the
+    atlas's bottom and right edges, runs of groups sharing one window;
+    accumulated onto a nonzero atlas.  Held at 1e-5 * max|atlas|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    for specs, G, rolled, window_cols in (
-            (ALL_SIZED * 2, 512, True, p_accum.WINDOW_COLS),
-            ([(FLAG_POLY, FULL_CLASS), (FLAG_MASKED, FULL_CLASS)] * 8, 64,
-             False, ATLAS_COLS),
-            ([(FLAG_POLY, 1), (FLAG_MASKED, FULL_CLASS)] * 8, 1, True,
-             p_accum.WINDOW_COLS)):
-        ops = _build(specs, G, rolled, 21)
-        t = [torch.from_numpy(np.array(a)).to(dev) for a in ops]
-        kw = dict(atlas_rows=ATLAS_ROWS, atlas_cols=ATLAS_COLS, C=C, group=G,
-                  window_cols=window_cols, window_rows=WINDOW_ROWS)
-        got = p_accum.accumulate_groups_cuda(*t, **kw)
-        ref = p_accum.accumulate_groups_plain(*t, **kw)
-        torch.cuda.synchronize()
-        assert ((got - ref).abs().max()
-                <= 1e-5 * ref.abs().max()).item()
+    ops, kw = _card_case(C_, G, rolled, 21 + C_)
+    t = [torch.from_numpy(np.array(a)).to(dev) for a in ops]
+    base = torch.from_numpy(np.random.RandomState(7).normal(
+        0.0, 1e-3, (C_, ATLAS_ROWS, ATLAS_COLS)).astype(np.float32)).to(dev)
+    before = p_accum.launches
+    got = p_accum.accumulate_groups_cuda(*t, atlas0=base.clone(), **kw)
+    ref = p_accum.accumulate_groups_plain(*t, atlas0=base.clone(), **kw)
+    torch.cuda.synchronize()
+    assert p_accum.launches == before + 1
+    assert (ref - base).abs().max().item() > 0.0
+    assert ((got - ref).abs().max() <= 1e-5 * ref.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rolled", [True, False])
+@pytest.mark.parametrize("n", [1, 1000, 33000])
+def test_plan_kernel_matches_plain_on_card(n, rolled):
+    """The plan kernel's work list equals ``deposit_plan``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(n)
+    flags = torch.from_numpy((rng.randint(0, 5, n) * 4 + rng.randint(0, 4, n))
+                             .astype(np.int32)).cuda()
+    got = p_accum.deposit_plan_cuda(flags, rolled)
+    want = p_accum.deposit_plan(flags, rolled)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _chip_smoke():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("rolled", [True, False])
+def test_k2_bound_counts_support(rolled):
+    """chip_smoke.k2_work's operation counts against a walk over every
+    (group, live particle, line): the bf16 product over the whole
+    rectangle, the Horner chains only where the line lies inside the
+    particle's support (and footprint, for MASKED groups), a select where
+    the profiles are clamped, the hat for tiny particles."""
+    cs = _chip_smoke()
+    G = 16
+    window_cols = p_accum.WINDOW_COLS if rolled else ATLAS_COLS
+    ops = _build(ALL_SIZED + [(FLAG_MIXED, 1)], G, rolled, seed=31)
+    ay, ax, ih, coef, w0, c0, ce, flags = ops
+    kw = dict(zip(("ay_g", "ax_g", "ih_g", "coef_g", "w0", "c0", "ce",
+                   "flags"), (torch.from_numpy(np.array(a)) for a in ops)),
+              atlas_rows=ATLAS_ROWS, atlas_cols=ATLAS_COLS, C=C, group=G,
+              window_cols=window_cols, window_rows=WINDOW_ROWS)
+    _, bf16, f32 = cs.k2_work(kw)
+    profile_cols = p_accum.PROFILE_COLS if rolled else ATLAS_COLS
+    want_bf16 = want_f32 = clamped = 0
+    for g, f in enumerate(flags.tolist()):
+        kind, sz = f // 4, f % 4
+        if kind == FLAG_INACTIVE or (sz != FULL_CLASS and not (
+                rolled and kind <= FLAG_POLY)):
+            continue
+        rows_eval, cols_eval = p_accum._extents(sz, WINDOW_ROWS, profile_cols)
+        rank = 1 if kind == FLAG_ALL_TINY else 2
+        for i in range(G):
+            if not coef[:, g, i].any():
+                continue
+            want_bf16 += 2 * C * rows_eval * cols_eval * rank
+            for lines, base, pos in ((rows_eval, w0[g], ay[g, i]),
+                                     (cols_eval, ce[g] if rolled else c0[g],
+                                      ax[g, i])):
+                for line in range(lines):
+                    if kind == FLAG_ALL_TINY or ih[g, i] < 0:
+                        want_f32 += cs.K2_OPS_PER_HAT_LINE
+                        continue
+                    d = np.float32(base + line) - pos
+                    inside = d * d * (ih[g, i] * ih[g, i]) < p_accum.SUPPORT2
+                    if kind == FLAG_MASKED:
+                        inside &= -p_accum.FOOT < d <= p_accum.FOOT
+                    want_f32 += (cs.K2_OPS_PER_POLY_LINE if inside
+                                 else cs.K2_OPS_PER_CLAMPED_LINE)
+                    clamped += not inside
+    assert clamped > 0
+    assert bf16 == want_bf16
+    assert f32 == want_f32

@@ -20,9 +20,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # no FMA contraction: the kernels' f32 arithmetic rounds
               # exactly as the plain PyTorch versions' separate ops do
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              # registers, shared memory and spills of every kernel
+              "-Xptxas=-v"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+#: nvcc's output per built source (ptxas' resource lines)
+build_logs: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -37,32 +41,48 @@ def nvcc_path() -> str:
                        "CUDA toolkit (set CUDA_HOME)")
 
 
+def _stem(name: str, defines) -> str:
+    """The library's name: the source's, plus its ``-D`` flags if any."""
+    return "-".join([name, *(d.removeprefix("-D").replace("=", "")
+                             for d in defines)])
+
+
 def build(names) -> None:
     """Compile ``csrc/<name>.cu`` for every name not yet loaded, one
-    ``nvcc`` process per source, all started together, and load them."""
-    todo = [n for n in dict.fromkeys(names) if n not in _libs]
-    if not todo:
+    ``nvcc`` process per source, all started together, and load them.  An
+    entry of ``names`` may also be a ``(name, defines)`` pair: a variant of
+    the source built with extra ``-D`` flags into its own library (a
+    breakdown build; the port's own libraries take none)."""
+    jobs = {}
+    for entry in names:
+        n, d = (entry, ()) if isinstance(entry, str) else \
+            (entry[0], tuple(entry[1]))
+        if _stem(n, d) not in _libs:
+            jobs[_stem(n, d)] = (n, d)
+    if not jobs:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {n: subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(BUILD_DIR / f"lib{n}.so"),
+    procs = {s: subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, *d, "-o", str(BUILD_DIR / f"lib{s}.so"),
          str(CSRC / f"{n}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for n in todo}
+        stderr=subprocess.STDOUT, text=True) for s, (n, d) in jobs.items()}
     failed = []
-    for n, proc in procs.items():
+    for s, proc in procs.items():
         out, _ = proc.communicate()
+        build_logs[s] = out
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{n}.cu:\n{out}")
+            failed.append(f"nvcc failed for {s}:\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
-    for n in todo:
-        _libs[n] = ctypes.CDLL(str(BUILD_DIR / f"lib{n}.so"))
+    for s in jobs:
+        _libs[s] = ctypes.CDLL(str(BUILD_DIR / f"lib{s}.so"))
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    build([name])
-    return _libs[name]
+def library(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with ``defines``),
+    building it if needed."""
+    build([(name, defines)])
+    return _libs[_stem(name, defines)]
 
 
 def triton_cache_dir() -> str:

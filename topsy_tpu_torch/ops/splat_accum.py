@@ -10,11 +10,18 @@ is not reproduced: a deposit lands directly at ``atlas[c, w0 + r, cbase +
 w]`` for the flag's exact (rows_eval, cols_eval) rectangle.
 
 Wrapper note (``accumulate_groups`` on a CUDA tensor): replaces
-``topsy_tpu/ops/splat_pallas.py::accumulate_groups_pallas``; on the H100 it
-is bound by profile evaluation and by the f32 atomics that merge group
-tiles into the L2-resident atlas; the kernel stages bf16 P*coef and Q in
-shared memory per 32-particle chunk, multiplies on the tensor cores (WMMA
-bf16 -> f32) and adds only the nonzero entries of each tile.
+``topsy_tpu/ops/splat_pallas.py::accumulate_groups_pallas``.  On the H100
+its time goes mostly to the float32 profile evaluation, (rows + cols) x G
+x rank degree-6 Horner steps per group; its least time is set by the bf16
+products (PERF.md).  Every entry of a group's rectangle is
+nonzero (in float32 the profiles' tails are), so the merge into the
+L2-resident atlas is 1.4e8 f32 additions per 2^24 main pass: as float4
+reductions they cost little.  A one-block plan
+kernel sorts the groups by size class on the card (``deposit_plan`` is its
+plain version); one persistent launch per class with class-shaped tiles
+stages each group's inputs by ``cp.async``, multiplies bf16 P*coef by bf16
+Q with ``wgmma`` while it evaluates the next chunk, and flushes four
+neighbouring entries per vector reduction.
 """
 
 from __future__ import annotations
@@ -206,6 +213,28 @@ def accumulate_groups_plain(ay_g, ax_g, ih_g, coef_g, w0, c0, ce, flags, *,
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
+#: rows of the kernel's largest class tile
+KERNEL_MAX_ROWS = 96
+
+
+def deposit_plan(flags: torch.Tensor, rolled: bool):
+    """The kernel's work list, as its plan kernel computes it on the card.
+
+    Returns int32 tensors ``(order, class_off)``: ``order`` lists the groups
+    that deposit (the reference's dispatch rule) sorted stably by size
+    class, then the others; class k is ``order[class_off[k]:class_off[k +
+    1]]`` (k < 4)."""
+    nclass = len(SIZE_CLASSES)
+    kind, sz = flags // 4, flags % 4
+    dep = ((kind >= FLAG_ALL_TINY) & (kind <= FLAG_MASKED)
+           & ((sz == FULL_CLASS) | (rolled & (kind <= FLAG_POLY))))
+    key = torch.where(dep, sz, nclass).long()
+    skey, order = torch.sort(key, stable=True)
+    class_off = torch.searchsorted(
+        skey, torch.arange(nclass + 1, device=flags.device), out_int32=True)
+    return order.to(torch.int32), class_off
+
+
 _lrk_host = None
 
 
@@ -221,16 +250,31 @@ def _lrk_arrays():
     return _lrk_host
 
 
-def _bind():
+def _bind(build_defines=()):
     from . import cuda_build
-    lib = cuda_build.library("splat_accum")
-    fn = lib.topsy_accumulate_groups
+    lib = cuda_build.library("splat_accum", build_defines)
+    fn, plan = lib.topsy_accumulate_groups, lib.topsy_deposit_plan
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, ctypes.c_longlong, P, P, P, P, P,
-                       I, I, I, I, I, I, I, I, ctypes.c_float, P, P, P]
+        fn.argtypes = [P, P, P, P, ctypes.c_longlong, P, P, P, P, P, P, I, I,
+                       I, I, I, I, I, I, I, ctypes.c_float, P, P, P]
         fn.restype = I
-    return fn
+        plan.argtypes = [P, I, I, P, P]
+        plan.restype = I
+    return fn, plan
+
+
+def deposit_plan_cuda(flags: torch.Tensor, rolled: bool):
+    """``deposit_plan`` by the kernel's plan kernel (for CUDA flags)."""
+    _check(flags, "flags", torch.int32, flags.shape, flags.device)
+    n = flags.shape[0]
+    out = torch.empty(n + len(SIZE_CLASSES) + 1, dtype=torch.int32,
+                      device=flags.device)
+    err = _bind()[1](flags.data_ptr(), n, int(rolled), out.data_ptr(),
+                     torch.cuda.current_stream(flags.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"deposit plan kernel launch failed: cudaError {err}")
+    return out[:n], out[n:]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -249,8 +293,12 @@ def accumulate_groups_cuda(ay_g, ax_g, ih_g, coef_g, w0, c0, ce, flags, *,
                            atlas_rows: int, atlas_cols: int, C: int,
                            group: int, atlas0=None,
                            window_cols: int = WINDOW_COLS,
-                           window_rows: int = WINDOW_ROWS):
-    """Launch kernel K2 (``csrc/splat_accum.cu``) on the current stream."""
+                           window_rows: int = WINDOW_ROWS,
+                           build_defines=()):
+    """Launch kernel K2 (``csrc/splat_accum.cu``) on the current stream.
+
+    ``build_defines``: the ``-D`` flags of a breakdown build of the kernel
+    with one part switched off (``k2_variants.py``); none for the port's."""
     global launches
     n = w0.shape[0]
     G = group
@@ -268,16 +316,26 @@ def accumulate_groups_cuda(ay_g, ax_g, ih_g, coef_g, w0, c0, ce, flags, *,
         atlas0 = torch.zeros((C, atlas_rows, atlas_cols), dtype=torch.float32,
                              device=dev)
     _check(atlas0, "atlas0", torch.float32, (C, atlas_rows, atlas_cols), dev)
+    if not 0 <= window_rows <= KERNEL_MAX_ROWS:
+        raise ValueError(f"window_rows {window_rows} outside [0, "
+                         f"{KERNEL_MAX_ROWS}]")
+    if atlas_cols % 4 or atlas0.data_ptr() % 16:
+        raise ValueError("the atlas rows must be 16-byte aligned (atlas_cols "
+                         f"{atlas_cols} a multiple of 4)")
     profile_cols = PROFILE_COLS if window_cols == WINDOW_COLS else window_cols
-    rolled = int(profile_cols != window_cols)
+    rolled = profile_cols != window_cols
+    plan = torch.empty(n + len(SIZE_CLASSES) + 1, dtype=torch.int32,
+                       device=dev)
+    vec_in = int(G % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                    for t in (ay, ax, ih, coef)))
     coeffs, signs = _lrk_arrays()
-    fn = _bind()
+    fn = _bind(build_defines)[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(ay.data_ptr(), ax.data_ptr(), ih.data_ptr(), coef.data_ptr(),
              n * G, w0.data_ptr(), c0.data_ptr(), ce.data_ptr(),
-             flags.data_ptr(), atlas0.data_ptr(), n, G, C, atlas_rows,
-             atlas_cols, window_rows, profile_cols, rolled, FOOT,
-             coeffs.ctypes.data, signs.ctypes.data, stream)
+             flags.data_ptr(), plan.data_ptr(), atlas0.data_ptr(), n, G, C,
+             atlas_rows, atlas_cols, window_rows, profile_cols, int(rolled),
+             vec_in, FOOT, coeffs.ctypes.data, signs.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(f"accumulate_groups kernel launch failed: "
                            f"cudaError {err}")
