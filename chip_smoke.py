@@ -20,11 +20,17 @@ surface EXPORT path and checks its (value, depth) image against the port's
 scatter-max ground truth.  It prints:
 
 * the card's name and power limit (nvidia-smi);
-* ptxas' registers, stack and spills for every K2 kernel instantiation;
+* ptxas' registers, stack and spills for every K2 and K3 kernel
+  instantiation;
 * per K2 call its groups by (kind, size class), the atlas entries it
   deposits, how many are nonzero and how many float4 reductions carry
   them, its bound (bytes, bf16 and float32 operations), and for the main
   pass and tier 2 the runs of consecutive groups sharing a window;
+* per K3 call its plan (the card's, checked equal to the plain one) by
+  size class, the panels it visits, its cull's list entries, the (pixel,
+  particle) pairs it evaluates against the fragments and hits its bound
+  counts, and its global atomics; each timed K3 call restarts from its own
+  starting atlas;
 * one ``{"kernels": [...]}`` JSON line: per kernel its launches during its
   path's EXPORT frames, its largest difference from the plain version, the
   kernel's and the plain version's time, the bound (the least time the
@@ -107,6 +113,26 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_from_ms(fn, reset, reps: int) -> float:
+    """Mean milliseconds of one call on the current stream (CUDA events
+    around each call alone), ``reset()`` restoring the call's starting
+    state before each call, outside the events."""
+    import torch
+    reset()
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the peak rate of their type."""
@@ -165,6 +191,26 @@ def k2_calls(feed_out, G, atlas_rows, atlas_cols):
     stragglers_kw["window_rows"] = splat_atlas.PRESORTED_WINDOW_ROWS
     return {"main": main_kw, "tier2": tier2_kw, "tier3": tier3_kw,
             "tier3_stragglers": stragglers_kw}, dropped
+
+
+def surface_chunk_calls(vis, sl, cut, gb, **extra):
+    """K3's calls for the column chunk ``sl`` of a surface EXPORT frame at
+    density cut ``cut`` and giant bucket threshold ``gb``, with the
+    one-particle-group tier 3 and four times the spill-group cap (phase
+    S2): ``zsplat_atlas.deposit_calls``'s (main, tier2, tier3, dropped,
+    atlas shape); ``extra``: more of its arguments (window_rows=0 forces
+    stragglers)."""
+    import numpy as np
+    from topsy_tpu_torch import config as cfg
+    from topsy_tpu_torch.ops import zsplat_atlas
+    ssph, store = vis._sph, vis.store
+    return zsplat_atlas.deposit_calls(
+        store.pos_smooth_presorted[sl],
+        store.presorted_values_for(ssph._buffer_name)[sl],
+        ssph._matrix().astype(np.float32), RESOLUTION,
+        np.float32(ssph.scale), store.presorted_buckets[sl], density_cut=cut,
+        giants=gb, spill_group_cap=4 * cfg.SPLAT_SPILL_GROUP_CAP,
+        t3_cap=4096, **extra)
 
 
 def k2_work(kw):
@@ -242,7 +288,8 @@ def k2_bound(kw):
 
 def ptxas_resources(log_text: str):
     """(kernel, 'registers, shared memory, spills') per function of an
-    ``nvcc -Xptxas -v`` log; K2's class kernels as <C, rows, columns>."""
+    ``nvcc -Xptxas -v`` log; K2's class kernels as <C, rows, columns>, K3's
+    as <panel rows, panel columns>."""
     import re
     out, name = [], None
     for line in log_text.splitlines():
@@ -250,8 +297,12 @@ def ptxas_resources(log_text: str):
         if m:
             t = re.search(r"deposit_class_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                           m.group(1))
+            z = re.search(r"zdeposit_class_kernelILi(\d+)ELi(\d+)E",
+                          m.group(1))
             name = (f"deposit_class_kernel<C={t[1]}, rows={t[2]}, "
                     f"cols={t[3]}>" if t else
+                    f"zdeposit_class_kernel<panel rows={z[1]}, cols={z[2]}>"
+                    if z else
                     re.sub(r".*_cu_\w{8}\d+(\w+?)E.*", r"\1", m.group(1)))
             out.append([name, []])
         elif name and ("spill" in line or "registers" in line):
@@ -357,11 +408,13 @@ def run_summary(lengths):
 
 
 def k3_work(kw, keys):
-    """(bytes, float32 operations, fragments, hits) that one K3 call needs
-    on this run's inputs (``keys``: the (R, C) packed atlas).  Fragments
-    and hits as for K3_OPS_*; only a hit can change the atlas.  Bytes:
-    every group's flag and the active groups' particles and anchors read
-    once, each hit pixel's (depth, value) read and written once."""
+    """(bytes, float32 operations, fragments, hits, hit pixels) that one
+    K3 call needs on this run's inputs (``keys``: the (R, C) packed atlas).
+    Fragments and hits as for K3_OPS_*; only a hit can change the atlas.
+    Bytes: every group's flag and the active groups' particles and anchors
+    read once, each hit pixel's (depth, value) read and written once.  Hit
+    pixels: the distinct (group, pixel) pairs with a hit, the least number
+    of merges into the atlas (a global atomic each in K3)."""
     import torch
     from topsy_tpu_torch.ops import zsplat_accum as za
     R, C = keys.shape
@@ -375,7 +428,7 @@ def k3_work(kw, keys):
     foot = za.FOOT
     off = torch.arange(1 - int(foot), int(foot) + 1, device=flags.device)
     hit_px = torch.zeros(R * C, dtype=torch.bool, device=flags.device)
-    lines = frags = hits = active = 0
+    lines = frags = hits = active = merges = 0
     for sz in (range(len(za.SIZE_CLASSES)) if rolled else (za.FULL_CLASS,)):
         sel = torch.nonzero(flags == za.FLAG_ACTIVE * 4 + sz).flatten()
         active += sel.numel()
@@ -401,11 +454,59 @@ def k3_work(kw, keys):
             lines += int(in_y.sum()) + int(in_x.sum())
             frags += int(frag.sum())
             hits += int(hit.sum())
-            hit_px[(y[..., :, None] * C + x[..., None, :])[hit]] = True
+            pix = y[..., :, None] * C + x[..., None, :]
+            hit_px[pix[hit]] = True
+            gid = torch.arange(g.numel(), device=flags.device)
+            merges += torch.unique(
+                (gid[:, None, None, None] * (R * C) + pix)[hit]).numel()
     nbytes = n * 4 + active * (G * 6 * 4 + 3 * 4) + int(hit_px.sum()) * 16
     ops = (K3_OPS_PER_LINE * lines + K3_OPS_PER_FRAGMENT * frags
            + K3_OPS_PER_HIT * hits)
-    return nbytes, float(ops), frags, hits
+    return nbytes, float(ops), frags, hits, merges
+
+
+def k3_census(kw, keys):
+    """What one K3 call does, counted from its inputs by the plain mirrors
+    of the kernel's plan and cull (``zsplat_accum.deposit_plan``,
+    ``particle_boxes``, ``PANELS``): the groups it dispatches by size
+    class; the panels it visits (those some box meets); its list entries
+    ((panel, particle) pairs whose box meets the panel); the (pixel,
+    particle) pairs it evaluates (each box inside each panel) and the lane
+    slots they occupy (32 per pass of a warp)."""
+    import torch
+    from topsy_tpu_torch.ops import zsplat_accum as za
+    R, C = keys.shape
+    flags, G = kw["flags"], kw["group"]
+    win = kw.get("window_cols", za.WINDOW_COLS)
+    prof = za.PROFILE_COLS if win == za.WINDOW_COLS else win
+    order, class_off = za.deposit_plan(flags, prof != win)
+    off = class_off.tolist()
+    out = dict(by_class=[off[k + 1] - off[k] for k in range(4)], panels=0,
+               entries=0, pairs=0, lane_slots=0)
+    for sz in range(4):
+        rows_eval, cols_eval = za.class_extents(sz, kw["window_rows"], prof)
+        pr, pc = za.PANELS[sz]
+        sel = order[off[sz]:off[sz + 1]].long()
+        for s in range(0, sel.numel(), 1024):
+            g = sel[s:s + 1024]
+            box = za.particle_boxes(
+                *(kw[k][g] for k in ("ay_g", "ax_g", "ih_g", "w0", "c0", "ce",
+                                     "flags")),
+                group=G, atlas_rows=R, atlas_cols=C, window_cols=win,
+                window_rows=kw["window_rows"]).long()
+            for r0 in range(0, rows_eval, pr):
+                for c0 in range(0, cols_eval, pc):
+                    h = (torch.clamp(box[..., 1], max=r0 + pr - 1)
+                         - torch.clamp(box[..., 0], min=r0) + 1)
+                    w = (torch.clamp(box[..., 3], max=c0 + pc - 1)
+                         - torch.clamp(box[..., 2], min=c0) + 1)
+                    area = torch.clamp(h, min=0) * torch.clamp(w, min=0)
+                    meets = area > 0
+                    out["panels"] += int(meets.any(dim=1).sum())
+                    out["entries"] += int(meets.sum())
+                    out["pairs"] += int(area.sum())
+                    out["lane_slots"] += int(((area + 31) // 32 * 32).sum())
+    return out
 
 
 def main() -> int:
@@ -421,7 +522,6 @@ def main() -> int:
     from topsy_tpu_torch.ops import (cuda_build, kernels, splat, splat_accum,
                                      splat_atlas, splat_feed, zsplat,
                                      zsplat_accum, zsplat_atlas)
-    from topsy_tpu_torch import config as cfg
     from topsy_tpu_torch.ops.smooth import smooth_image
     from topsy_tpu_torch.ops.splat_giant import BUCKET_DISABLED, GIANT_H
     from topsy_tpu_torch.render import surface
@@ -454,6 +554,8 @@ def main() -> int:
         "parallel, then Triton JIT)")
     for name, res in ptxas_resources(cuda_build.build_logs["splat_accum"]):
         log(f"ptxas K2 {name}: {res}")
+    for name, res in ptxas_resources(cuda_build.build_logs["zsplat_accum"]):
+        log(f"ptxas K3 {name}: {res}")
 
     # ---- phase 3: the scene ------------------------------------------------
     t0 = time.perf_counter()
@@ -662,7 +764,7 @@ def main() -> int:
         """Kernel and plain version on the whole call from the same atlas
         state; returns the kernel's keys."""
         nonlocal k3_err
-        nbytes, ops, frags, hits = k3_work(kw, keys0)
+        nbytes, ops, frags, hits, merges = k3_work(kw, keys0)
         k = keys0.clone()
         zsplat_accum.accumulate_max_packed_cuda(k, **kw)
         p = keys0.clone()
@@ -678,11 +780,25 @@ def main() -> int:
               f"the plain version (max abs diff {err})")
         k3_err = max(k3_err, err)
         active = int((kw["flags"] // 4 == zsplat_accum.FLAG_ACTIVE).sum())
+        # the card's work list against its plain mirror; the census
+        win = kw.get("window_cols", zsplat_accum.WINDOW_COLS)
+        rolled = win == zsplat_accum.WINDOW_COLS
+        plan_k = zsplat_accum.deposit_plan_cuda(kw["flags"], rolled)
+        plan_p = zsplat_accum.deposit_plan(kw["flags"], rolled)
+        check(all(torch.equal(x, y) for x, y in zip(plan_k, plan_p)),
+              f"K3 {label}: the plan kernel differs from deposit_plan")
+        cen = k3_census(kw, keys0)
+        check(sum(cen["by_class"]) == (active if rolled else int(
+            (kw["flags"] == 4 * zsplat_accum.FLAG_ACTIVE
+             + zsplat_accum.FULL_CLASS).sum())),
+              f"K3 {label}: the plan lists {cen['by_class']} groups, not the "
+              f"{active} active ones")
         extra = ""
         if timing:
             k_t = keys0.clone()
-            k3_ms[label] = timed_ms(
-                lambda: zsplat_accum.accumulate_max_packed_cuda(k_t, **kw), 5)
+            k3_ms[label] = timed_from_ms(
+                lambda: zsplat_accum.accumulate_max_packed_cuda(k_t, **kw),
+                lambda: k_t.copy_(keys0), 5)
             k3_plain_ms[label] = plain_s * 1e3
             k3_bound[label] = bound(nbytes, ops, F32_OPS_PER_S)
             extra = (f"; {k3_ms[label]:.3f} ms (plain {plain_s * 1e3:.3f} "
@@ -692,6 +808,13 @@ def main() -> int:
         log(f"phase S2 {label}: bit-identical; groups {kw['flags'].shape[0]}"
             f" of {kw['group']} (active {active}); fragments {frags}, hits "
             f"{hits}, bytes {nbytes}{extra}")
+        log(f"phase S2 {label} census: plan (card = plain) groups by class "
+            f"{cen['by_class']}; panels visited {cen['panels']}; list "
+            f"entries {cen['entries']}; (pixel, particle) pairs evaluated "
+            f"{cen['pairs']} ({cen['pairs'] / max(frags, 1):.3f} of the "
+            f"fragments, {cen['pairs'] / max(hits, 1):.3f} of the hits) in "
+            f"{cen['lane_slots']} lane slots; global atomics {merges} (hit "
+            f"pixels per group)")
         return k
 
     def surface_frames(tag, percentile):
@@ -709,13 +832,9 @@ def main() -> int:
 
         # ---- S2: K3 against its plain version on every call of a frame
         t0 = time.perf_counter()
-        za_kw = dict(density_cut=cut, giants=gb,
-                     spill_group_cap=4 * cfg.SPLAT_SPILL_GROUP_CAP,
-                     t3_cap=4096)
         for ci, sl in enumerate(chunks):
-            main_kw, t2_kw, t3_kw, drop, shape = zsplat_atlas.deposit_calls(
-                sps[sl], svals[sl], smatrix, RESOLUTION, sscale, sbks[sl],
-                **za_kw)
+            main_kw, t2_kw, t3_kw, drop, shape = surface_chunk_calls(
+                vis, sl, cut, gb)
             keys = zsplat_accum.pack_atlas(torch.zeros(shape, device=dev))
             for name, kw in (("main", main_kw), ("tier2", t2_kw),
                              ("tier3", t3_kw)):
@@ -724,9 +843,8 @@ def main() -> int:
             log(f"phase S2 {tag} chunk {ci}: dropped {int(drop.item())}")
             if ci == 0:
                 # the frame's plain parts around K3 at this chunk's shapes
-                front_ms = timed_ms(lambda: zsplat_atlas.deposit_calls(
-                    sps[sl], svals[sl], smatrix, RESOLUTION, sscale, sbks[sl],
-                    **za_kw), 3)
+                front_ms = timed_ms(
+                    lambda: surface_chunk_calls(vis, sl, cut, gb), 3)
                 collapse_ms = timed_ms(lambda: zsplat_atlas.collapse_max_atlas(
                     zsplat_accum.unpack_atlas(keys), pyr), 3)
                 log(f"phase S2 {tag} chunk 0 plain parts: front end, anchors "
@@ -735,9 +853,8 @@ def main() -> int:
                 # a zero-row fit window makes every gathered spilled
                 # particle a straggler, so the one-particle shape sees real
                 # anchors
-                _, _, forced, _, _ = zsplat_atlas.deposit_calls(
-                    sps[sl], svals[sl], smatrix, RESOLUTION, sscale, sbks[sl],
-                    window_rows=0, **za_kw)
+                _, _, forced, _, _ = surface_chunk_calls(vis, sl, cut, gb,
+                                                         window_rows=0)
                 check((forced["flags"] // 4 == zsplat_accum.FLAG_ACTIVE).any(),
                       f"{tag} forced tier 3: no active straggler")
                 k3_compare(f"{tag}_chunk0_tier3_forced", forced,
@@ -750,6 +867,7 @@ def main() -> int:
         splat_feed.launches = 0
         splat_accum.launches = 0
         zsplat_accum.launches = 0
+        zsplat_accum.plan_launches = 0
         for _ in range(2):                      # warm-up frames
             ssph.invalidate()
             ssph.render(DrawReason.EXPORT)
@@ -769,7 +887,8 @@ def main() -> int:
             sframe_ms.append(start.elapsed_time(end))
         slaunches = {"splat_feed": splat_feed.launches,
                      "accumulate_groups": splat_accum.launches,
-                     "accumulate_max_groups": zsplat_accum.launches}
+                     "accumulate_max_groups": zsplat_accum.launches,
+                     "zdeposit_plan": zsplat_accum.plan_launches}
         smed = statistics.median(sframe_ms)
         simg = ssph.get_output_image()
         smooth_ms = timed_ms(lambda: smooth_image(simg, 0.01), 3)
@@ -786,8 +905,10 @@ def main() -> int:
             f"{smooth_ms:.3f} ms, presentation (filter + lighting) "
             f"{present_ms:.3f} ms, get_sph_image {content_ms:.3f} ms (host "
             f"wall); launches during the frames {slaunches}")
-        check(slaunches["accumulate_max_groups"] > 0,
-              f"K3 was not launched on the surface EXPORT path: {slaunches}")
+        check(slaunches["accumulate_max_groups"] > 0
+              and slaunches["zdeposit_plan"] > 0,
+              f"K3 or its plan kernel was not launched on the surface EXPORT "
+              f"path: {slaunches}")
         check(content.shape == (RESOLUTION, RESOLUTION, 2)
               and np.isfinite(content).all(),
               f"surface get_sph_image {content.shape} not finite")
@@ -870,6 +991,8 @@ def main() -> int:
          "bound_by": k3_bound["cut50_chunk0_main"][1], "library_ms": None,
          "launches_by_cut": {k: v["accumulate_max_groups"]
                              for k, v in slaunches.items()},
+         "plan_launches_by_cut": {k: v["zdeposit_plan"]
+                                  for k, v in slaunches.items()},
          "ms_by_shape": k3_ms, "plain_ms_by_shape": k3_plain_ms,
          "bound_ms_by_shape": {k: v[0] for k, v in k3_bound.items()}},
     ]

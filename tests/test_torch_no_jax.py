@@ -54,7 +54,7 @@ def test_port_renders_without_jax():
 
 
 @pytest.mark.parametrize("path", [
-    "topsy_tpu_torch", "chip_smoke.py", "k2_variants.py"])
+    "topsy_tpu_torch", "chip_smoke.py", "k2_variants.py", "k3_host_cost.py"])
 def test_no_jax_import_in_port_sources(path):
     full = os.path.join(ROOT, path)
     files = ([full] if full.endswith(".py") else

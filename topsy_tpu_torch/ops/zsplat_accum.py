@@ -34,18 +34,24 @@ and is built with ``--fmad=false``; ``tests/test_torch_zsplat_accum.py``
 holds the plain version equal to the interpreted Pallas kernel in the three
 call shapes.
 
-Wrapper note (``accumulate_max_groups_cuda``): replaces
+Wrapper note (``accumulate_max_packed_cuda``): replaces
 ``topsy_tpu/ops/zsplat_pallas.py::accumulate_max_groups_pallas``; on the
-H100 it is bound by the float32 hemisphere evaluations (rows_eval x
-cols_eval x G per active group); the kernel (``csrc/zsplat_accum.cu``)
-stages a group's particles in shared memory once per 16 x 32 pixel tile,
-skips particles outside a pixel's footprint before the square root, and
-merges each pixel's winner with one 64-bit ``atomicMax``.
+H100 its least time is the float32 work of the fragments (the pixels of
+each valid particle's +-8 footprint inside its group's rectangle, a square
+root per hit).  The kernel (``csrc/zsplat_accum.cu``) launches no block for
+an inactive group: a plan kernel sorts the active groups by size class on
+the card (``deposit_plan`` is its plain version) and one persistent launch
+per class walks them.  A block stages its group once, culls each particle
+to its box, the rows and columns where it can hit (``particle_boxes``),
+visits only the panels of the rectangle that a box meets
+(``tile_lists``), merges the hits into the panel's keys in shared memory
+and then each touched pixel into the atlas with one 64-bit ``atomicMax``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,8 +65,10 @@ FLAG_ACTIVE = 1    # active: combined flag is FLAG_ACTIVE * 4 + size_class
 
 FOOT = 8.0         # footprint truncation, as splat_atlas.FOOT
 
-#: launches of the CUDA kernel (incremented only where it is launched)
+#: launches of the CUDA kernel (incremented only where it is launched) and
+#: of its plan kernel (once per kernel call and per ``deposit_plan_cuda``)
 launches = 0
+plan_launches = 0
 
 #: (group, row, column, particle) entries per step of the plain version
 #: (bounds its memory)
@@ -85,6 +93,12 @@ def class_extents(sz: int, window_rows: int, profile_cols: int):
     rows_eval = window_rows if r_e is None else min(r_e, window_rows)
     cols_eval = profile_cols if c_e is None else min(c_e, profile_cols)
     return rows_eval, cols_eval
+
+
+def _profile_cols(window_cols: int) -> int:
+    """The columns a call's rectangles span: the profile of a windowed
+    (rolled) call, else the whole window."""
+    return PROFILE_COLS if window_cols == WINDOW_COLS else window_cols
 
 
 def _sord(x: torch.Tensor) -> torch.Tensor:
@@ -190,7 +204,7 @@ def accumulate_max_packed_plain(keys, ay_g, ax_g, ih_g, pay_g, w0, c0, ce,
     ax = ax_g.reshape(n, G)
     ih = ih_g.reshape(n, G)
     pay = pay_g.reshape(n, 3, G)
-    profile_cols = PROFILE_COLS if window_cols == WINDOW_COLS else window_cols
+    profile_cols = _profile_cols(window_cols)
     rolled = profile_cols != window_cols
     cbase = ce if rolled else c0
     flat = keys.view(-1)
@@ -233,28 +247,183 @@ def accumulate_max_groups_plain(ay_g, ax_g, ih_g, pay_g, w0, c0, ce, flags,
 
 
 # ---------------------------------------------------------------------------
+# the kernel's work list and cull, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+#: the kernel's panel per size class: (rows, columns) of the class rectangle
+#: whose keys a block holds in shared memory at a time
+PANELS = ((16, 32), (32, 64), (48, 128), (48, 128))
+
+#: largest group the kernel takes
+KERNEL_MAX_G = 2048
+
+#: atlas extent the kernel takes (its anchors are cut at 2^23)
+KERNEL_MAX_EXTENT = 1 << 22
+
+
+def _dispatched(flags: torch.Tensor, rolled: bool) -> torch.Tensor:
+    """The size class of each group the deposit dispatches (active, and of
+    any class in rolled launches, else of the full class), else
+    ``len(SIZE_CLASSES)``."""
+    sz = flags % 4
+    dep = (flags // 4 == FLAG_ACTIVE) & ((sz == FULL_CLASS) | rolled)
+    return torch.where(dep, sz, len(SIZE_CLASSES))
+
+
+def deposit_plan(flags: torch.Tensor, rolled: bool):
+    """The kernel's work list, as its plan kernel computes it on the card.
+
+    Returns int32 tensors ``(order, class_off)``: ``order`` lists the groups
+    the deposit dispatches sorted stably by size class, then the others;
+    class k is ``order[class_off[k]:class_off[k + 1]]`` (k < 4)."""
+    nclass = len(SIZE_CLASSES)
+    skey, order = torch.sort(_dispatched(flags, rolled).long(), stable=True)
+    class_off = torch.searchsorted(
+        skey, torch.arange(nclass + 1, device=flags.device), out_int32=True)
+    return order.to(torch.int32), class_off
+
+
+def _hit_interval(a, ih2, base, n, limit):
+    """[lo, hi] offsets o in [0, n) from ``base`` (B, 1) at which positions
+    ``a`` (B, G) can hit, as the kernel's ``hit_interval``: atlas index
+    base + o in [0, limit), -FOOT < d <= FOOT and fl(d^2) * ih2 < 4 (exact:
+    the float32 product of two floats is exact in float64), d = float(base
+    + o) - a; (B, G) int64 each, lo > hi when empty."""
+    k = torch.floor(torch.where(torch.isfinite(a), a, 0.0)).long()
+    x = k[..., None] + torch.arange(-8, 10, device=a.device)   # (B, G, 18)
+    o = x - base[..., None]
+    d = x.float() - a[..., None]
+    ok = ((o >= 0) & (o < n[..., None]) & (x >= 0) & (x < limit) & (d > -FOOT)
+          & (d <= FOOT)
+          & ((d * d).double() * ih2[..., None].double() < 4.0))
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(ok, o, big).amin(-1)
+    hi = torch.where(ok, o, -big).amax(-1)
+    return lo, hi
+
+
+def particle_boxes(ay_g, ax_g, ih_g, w0, c0, ce, flags, *, group: int,
+                   atlas_rows: int, atlas_cols: int,
+                   window_cols: int = WINDOW_COLS,
+                   window_rows: int = WINDOW_ROWS):
+    """Each particle's box, as the kernel computes it: the rows and columns
+    of its group's rectangle (offsets from w0 and the column base) where a
+    fragment can hit (t > 0), clipped to the rectangle and the atlas.
+    Every hit satisfies fl(dy^2) * ih^2 < 4 and fl(dx^2) * ih^2 < 4 (s is
+    at least either square in every summation order), so the box holds
+    every fragment that can change the atlas.  Returns int32 (n_groups, G,
+    4) [row lo, row hi, col lo, col hi]; (1, 0, 1, 0) (empty) for invalid
+    particles and for groups the deposit does not dispatch."""
+    n = w0.shape[0]
+    G = group
+    ay = ay_g.reshape(n, G)
+    ax = ax_g.reshape(n, G)
+    ih = ih_g.reshape(n, G)
+    profile_cols = _profile_cols(window_cols)
+    rolled = profile_cols != window_cols
+    cbase = (ce if rolled else c0).long()[:, None]
+    cls = _dispatched(flags, rolled)
+    ext = torch.tensor([class_extents(sz, window_rows, profile_cols)
+                        for sz in range(len(SIZE_CLASSES))] + [(0, 0)],
+                       device=w0.device)[cls.long()]            # (n, 2)
+    ih2 = ih * ih
+    far = (torch.abs(ay) < 2.0 ** 23) & (torch.abs(ax) < 2.0 ** 23)
+    r_lo, r_hi = _hit_interval(ay, ih2, w0.long()[:, None], ext[:, :1],
+                               atlas_rows)
+    c_lo, c_hi = _hit_interval(ax, ih2, cbase, ext[:, 1:], atlas_cols)
+    ok = (ih > 0.0) & far & (r_lo <= r_hi) & (c_lo <= c_hi)
+    box = torch.stack([r_lo, r_hi, c_lo, c_hi], dim=-1)
+    empty = torch.tensor([1, 0, 1, 0], device=w0.device)
+    return torch.where(ok[..., None], box, empty).to(torch.int32)
+
+
+def tile_lists(boxes, flags, *, window_cols: int = WINDOW_COLS,
+               window_rows: int = WINDOW_ROWS):
+    """The kernel's per-panel cull: {(group, panel row, panel column):
+    int64 indices of the group's particles whose box meets the panel} over
+    the panels (``PANELS`` of the group's size class tiling its rectangle)
+    that at least one box meets.  The kernel visits these panels only, and
+    in each evaluates each listed particle over its box inside the panel."""
+    profile_cols = _profile_cols(window_cols)
+    rolled = profile_cols != window_cols
+    cls = _dispatched(flags, rolled)
+    out = {}
+    for g in torch.nonzero(cls < len(SIZE_CLASSES)).flatten().tolist():
+        sz = int(cls[g])
+        rows_eval, cols_eval = class_extents(sz, window_rows, profile_cols)
+        pr, pc = PANELS[sz]
+        b = boxes[g].long()
+        for r0 in range(0, rows_eval, pr):
+            for c0 in range(0, cols_eval, pc):
+                meets = ((torch.minimum(b[:, 1], torch.tensor(r0 + pr - 1))
+                          >= torch.clamp(b[:, 0], min=r0))
+                         & (torch.minimum(b[:, 3], torch.tensor(c0 + pc - 1))
+                            >= torch.clamp(b[:, 2], min=c0)))
+                idx = torch.nonzero(meets).flatten()
+                if idx.numel():
+                    out[(g, r0 // pr, c0 // pc)] = idx
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-def _bind():
+@functools.lru_cache(maxsize=None)
+def _bind(build_defines=()):
+    """(kernel call, plan call) of the library built with ``build_defines``,
+    bound once."""
     from . import cuda_build
-    lib = cuda_build.library("zsplat_accum")
-    fn = lib.topsy_accumulate_max_groups
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, I, ctypes.c_float, P]
-        fn.restype = I
-    return fn
+    lib = cuda_build.library("zsplat_accum", build_defines)
+    fn, plan = lib.topsy_accumulate_max_groups, lib.topsy_zdeposit_plan
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, P, P, P, P, P,
+                   I, I, I, I, I, I, I, I, I, ctypes.c_float, P]
+    fn.restype = I
+    plan.argtypes = [P, I, I, P, P]
+    plan.restype = I
+    return fn, plan
+
+
+@functools.lru_cache(maxsize=None)
+def _call_constants(G: int, window_rows: int, window_cols: int):
+    """(profile_cols, rolled, orders) of one call shape: ``orders`` holds
+    each size class's ``sum_order`` in 2 bits."""
+    profile_cols = _profile_cols(window_cols)
+    orders = sum(sum_order(G, class_extents(sz, window_rows,
+                                            profile_cols)[1]) << (2 * sz)
+                 for sz in range(len(SIZE_CLASSES)))
+    return profile_cols, int(profile_cols != window_cols), orders
+
+
+def deposit_plan_cuda(flags: torch.Tensor, rolled: bool):
+    """``deposit_plan`` by the kernel's plan kernel (for CUDA flags)."""
+    global plan_launches
+    _check(flags, "flags", torch.int32, flags.shape, flags.device)
+    n = flags.shape[0]
+    out = torch.empty(n + len(SIZE_CLASSES) + 1, dtype=torch.int32,
+                      device=flags.device)
+    err = _bind()[1](flags.data_ptr(), n, int(rolled), out.data_ptr(),
+                     torch.cuda.current_stream(flags.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"zdeposit plan kernel launch failed: cudaError "
+                           f"{err}")
+    if n:
+        plan_launches += 1
+    return out[:n], out[n:]
 
 
 def accumulate_max_packed_cuda(keys, ay_g, ax_g, ih_g, pay_g, w0, c0, ce,
                                flags, *, group: int,
                                window_cols: int = WINDOW_COLS,
-                               window_rows: int = WINDOW_ROWS):
+                               window_rows: int = WINDOW_ROWS,
+                               build_defines=()):
     """Launch kernel K3 (``csrc/zsplat_accum.cu``) on the current stream,
-    merging into the packed keys (R, C) int64 in place."""
-    global launches
+    merging into the packed keys (R, C) int64 in place: the plan kernel,
+    then one launch per size class the call can dispatch.
+    ``build_defines``: the ``-D`` flags of a breakdown build of the kernel
+    with one part switched off (``k2_variants.py``); none for the port's."""
+    global launches, plan_launches
     n = w0.shape[0]
     G = group
     dev = w0.device
@@ -269,21 +438,31 @@ def accumulate_max_packed_cuda(keys, ay_g, ax_g, ih_g, pay_g, w0, c0, ce,
     for name, t in (("w0", w0), ("c0", c0), ("ce", ce), ("flags", flags)):
         _check(t, name, torch.int32, (n,), dev)
     _check(keys, "keys", torch.int64, (atlas_rows, atlas_cols), dev)
-    profile_cols = PROFILE_COLS if window_cols == WINDOW_COLS else window_cols
-    rolled = int(profile_cols != window_cols)
-    orders = sum(sum_order(G, class_extents(sz, window_rows,
-                                            profile_cols)[1]) << (2 * sz)
-                 for sz in range(len(SIZE_CLASSES)))
-    fn = _bind()
+    profile_cols, rolled, orders = _call_constants(G, window_rows,
+                                                   window_cols)
+    if not 1 <= G <= KERNEL_MAX_G:
+        raise ValueError(f"group {G} outside [1, {KERNEL_MAX_G}]")
+    if (max(atlas_rows, atlas_cols, window_rows, profile_cols)
+            >= KERNEL_MAX_EXTENT or window_rows < 0):
+        raise ValueError(f"atlas ({atlas_rows}, {atlas_cols}) or window "
+                         f"({window_rows}, {profile_cols}) outside the "
+                         f"kernel's [0, {KERNEL_MAX_EXTENT})")
+    plan = torch.empty(n + len(SIZE_CLASSES) + 1, dtype=torch.int32,
+                       device=dev)
+    vec_in = int(G % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                    for t in (ay, ax, ih, pay)))
+    fn = _bind(tuple(build_defines))[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(ay.data_ptr(), ax.data_ptr(), ih.data_ptr(), pay.data_ptr(),
              w0.data_ptr(), c0.data_ptr(), ce.data_ptr(), flags.data_ptr(),
-             keys.data_ptr(), n, G, atlas_rows, atlas_cols, window_rows,
-             profile_cols, rolled, orders, FOOT, stream)
+             plan.data_ptr(), keys.data_ptr(), n, G, atlas_rows, atlas_cols,
+             window_rows, profile_cols, rolled, vec_in, orders, FOOT, stream)
     if err != 0:
         raise RuntimeError(f"accumulate_max_groups kernel launch failed: "
                            f"cudaError {err}")
     launches += 1
+    if n:
+        plan_launches += 1
     return keys
 
 
