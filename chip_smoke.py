@@ -12,7 +12,17 @@ against their plain PyTorch versions on the card at the shapes the EXPORT
 path gives them (every piece of the renderer's piece loop), drives the
 univariate EXPORT path (warm-up and timed frames, the SPH image and the
 presentation image) and checks the image against the port's scatter ground
-truth.  Then it switches the same Visualizer to the surface mode and, at
+truth.  On the same Visualizer it drives the interactive path (phase I):
+K1 and K2 against their plain versions, each call timed alone beside its
+plain version and its bound, on two column slices (one layout quantum
+wide, and three, not a power of two) and on the CHANGE frame's own
+full-width column launch (both group-axis pieces, the raised spill
+budgets), five views after two
+warm-ups, each a CHANGE draw and the REFINE draws that complete it, timed
+by the frame clock from the first launch to the end of the presentation
+readback, the completed image against the EXPORT image of its view, and a
+zoomed-out view where the giant layer runs, against the scatter truth and its
+EXPORT image.  Then it switches the same Visualizer to the surface mode and, at
 the default density cut and at the lowest one (every particle, much of the
 image covered), holds K3 bit-identical to its plain version on every K3
 call of one surface EXPORT frame (plus forced stragglers), drives the
@@ -31,12 +41,17 @@ scatter-max ground truth.  It prints:
   particle) pairs it evaluates against the fragments and hits its bound
   counts, and its global atomics; each timed K3 call restarts from its own
   starting atlas;
+* per interactive frame its time, column ranges, dropped splats and mass
+  scale;
 * one ``{"kernels": [...]}`` JSON line: per kernel its launches during its
-  path's EXPORT frames, its largest difference from the plain version, the
+  path's EXPORT frames and interactive views, its largest difference from
+  the plain version, the
   kernel's and the plain version's time, the bound (the least time the
   card could take for the same work: bytes over 3.35 TB/s or operations
   over the peak rate of their type, whichever is larger) and the library
   call's time (null: no single PyTorch call computes any of the three);
+  for K1 and K2 also every interactive call of phase I1, its time, its
+  plain version's and its bound;
 * last, ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure, so the script exits nonzero and prints no
@@ -201,16 +216,15 @@ def surface_chunk_calls(vis, sl, cut, gb, **extra):
     atlas shape); ``extra``: more of its arguments (window_rows=0 forces
     stragglers)."""
     import numpy as np
-    from topsy_tpu_torch import config as cfg
-    from topsy_tpu_torch.ops import zsplat_atlas
+    from topsy_tpu_torch.ops import splat_atlas, zsplat_atlas
     ssph, store = vis._sph, vis.store
     return zsplat_atlas.deposit_calls(
         store.pos_smooth_presorted[sl],
         store.presorted_values_for(ssph._buffer_name)[sl],
         ssph._matrix().astype(np.float32), RESOLUTION,
         np.float32(ssph.scale), store.presorted_buckets[sl], density_cut=cut,
-        giants=gb, spill_group_cap=4 * cfg.SPLAT_SPILL_GROUP_CAP,
-        t3_cap=4096, **extra)
+        giants=gb, spill_group_cap=splat_atlas.COLUMN_SPILL_GROUP_CAP,
+        t3_cap=splat_atlas.COLUMN_T3_CAP, **extra)
 
 
 def k2_work(kw):
@@ -270,6 +284,19 @@ def k2_work(kw):
     nbytes = n * G * (3 + C) * 4 + n * 16 + 2 * C * kw["atlas_rows"] * \
         kw["atlas_cols"] * 4
     return nbytes, bf16, f32
+
+
+def k1_bound(fkw, G):
+    """(bound_ms, bound_by) of one K1 call over ``fkw['piece_groups']``
+    groups of G slots: per slot the four fields and two values read and
+    the three anchors and two channels of each of cfit and cspill written,
+    per group its 8-float table row read and 5 integers written, all
+    4 bytes; ``K1_OPS_PER_SLOT`` float32 operations per slot."""
+    groups = fkw["piece_groups"]
+    slots = groups * G
+    return bound(slots * (4 + 2) * 4 + groups * 8 * 4
+                 + slots * (3 + 2 * 2) * 4 + groups * 5 * 4,
+                 slots * K1_OPS_PER_SLOT, F32_OPS_PER_S)
 
 
 def k2_bound(kw):
@@ -509,6 +536,308 @@ def k3_census(kw, keys):
     return out
 
 
+def compare_feed(label, out_k, out_p) -> float:
+    """K1's outputs against its plain version's: finite, f32 planes within
+    rtol 1e-6, integers equal.  Returns the largest f32 difference."""
+    import torch
+    err = 0.0
+    for name, a, b in zip(("ay", "ax", "ih", "cfit", "cspill"), out_k[:5],
+                          out_p[:5]):
+        check(torch.isfinite(a).all(), f"K1 {label} {name} not finite")
+        check(torch.allclose(a, b, rtol=1e-6, atol=0.0),
+              f"K1 {label} {name} differs from the plain version beyond "
+              f"rtol 1e-6: max {(a - b).abs().max().item()}")
+        err = max(err, (a - b).abs().max().item())
+    for name, a, b in zip(("w0", "c0", "ce", "flags", "nspill"), out_k[5:],
+                          out_p[5:]):
+        n_diff = int((a != b).sum().item())
+        check(n_diff == 0, f"K1 {label} {name}: {n_diff} groups differ")
+    return err
+
+
+def compare_k2(label, kw):
+    """One K2 call against its plain version from a zero atlas, within
+    1e-5 of the atlas maximum.  Returns (max abs diff, max|atlas|, active
+    groups)."""
+    from topsy_tpu_torch.ops import splat_accum
+    a_k = splat_accum.accumulate_groups_cuda(**kw)
+    a_p = splat_accum.accumulate_groups_plain(**kw)
+    ref_max = a_p.abs().max().item()
+    err = (a_k - a_p).abs().max().item()
+    check(bool(a_k.isfinite().all()), f"K2 {label}: atlas not finite")
+    check(err <= 1e-5 * ref_max, f"K2 {label}: max abs diff {err} > 1e-5 * "
+          f"{ref_max}")
+    return err, ref_max, int(((kw["flags"] // 4) > 0).sum().item())
+
+
+def interactive_times(times):
+    """The kernels line's entries for phase I1's calls, keyed
+    "w<slice width>_p<piece>[_<K2 shape>]"."""
+    return {f"interactive_{k}_by_call": {key: t[i] for key, t in times.items()}
+            for i, k in enumerate(("ms", "plain_ms", "bound_ms"))}
+
+
+def frame_record(sph):
+    """(frame ms by the frame clock, column ranges, dropped, mass scale) of
+    the renderer's last interactive frame, after its presentation."""
+    return (sph.frame_clock.seconds() * 1e3, list(sph.last_column_ranges),
+            sph.last_dropped_splats, sph.last_render_mass_scale)
+
+
+def drive_view(vis, max_frames=64):
+    """A CHANGE draw, then REFINE draws until the progression is complete:
+    the user's interactive path.  Returns each frame's ``frame_record``."""
+    from topsy_tpu_torch.visualizer import DrawReason
+    sph = vis._sph
+    vis.draw(DrawReason.CHANGE)
+    frames = [frame_record(sph)]
+    while sph.needs_refine():
+        check(len(frames) < max_frames, f"no completion in {max_frames} "
+              "frames")
+        vis.draw(DrawReason.REFINE)
+        frames.append(frame_record(sph))
+    return frames
+
+
+def export_drops(vis):
+    """(splats each piece of an EXPORT frame at the current view drops, the
+    visible splats of the frame): the renderer reports the last piece's
+    drops only, as the reference does."""
+    from topsy_tpu_torch.ops import splat, splat_atlas, splat_feed
+    _, atlas_rows, atlas_cols = splat_atlas.atlas_layout(
+        splat.default_pyramid(RESOLUTION))
+    G = vis.store.presorted_layout.pad_group
+    drops, visible = [], 0
+    for piece in vis._sph.pieces():
+        fargs, fkw = feed_args(vis, piece)
+        out = splat_feed.splat_feed(*fargs, **fkw)
+        visible += int(((out[3][0] != 0) | (out[4][0] != 0)).sum().item())
+        *_, dropped = splat_atlas.deposit_calls(
+            out, C=2, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols)
+        drops.append(int(dropped.item()))
+    return drops, visible
+
+
+def against_export(vis, tag):
+    """The completed interactive image of the current view against the
+    EXPORT image of the same view: the mass scale within 1e-6 of 1,
+    correlation > 0.9999, and the density sums within rel 1e-4 once each
+    side's dropped splats are counted.  The EXPORT pieces keep the
+    reference's spill budget and the interactive launch a 4x one, so they
+    drop different numbers of splats; when every particle of the snapshot
+    has the same mass (checked), each deposited splat adds the same to the
+    density sum, and sum_I / sum_E - 1 must equal
+    (d_E - d_I) / (visible - d_E) (0 when neither drops)."""
+    import numpy as np
+    from topsy_tpu_torch.visualizer import DrawReason
+    mass = vis.data_loader.get_mass()
+    check((mass == mass[0]).all(), f"{tag}: the snapshot's masses differ, "
+          "so dropped splats do not count for equal shares of the density")
+    sph = vis._sph
+    ms = sph.last_render_mass_scale
+    d_i = sph.last_dropped_splats
+    im_i = sph.get_output_image()[..., 0].double().cpu().numpy()
+    sph.invalidate()
+    sph.render(DrawReason.EXPORT)
+    im_e = sph.get_output_image()[..., 0].double().cpu().numpy()
+    drops, visible = export_drops(vis)
+    d_e = sum(drops)
+    rel = im_i.sum() / im_e.sum() - 1.0
+    counted = (d_e - d_i) / (visible - d_e)
+    corr = float(np.corrcoef(im_i.ravel(), im_e.ravel())[0, 1])
+    diff = np.abs(im_i - im_e).max() / np.abs(im_e).max()
+    log(f"phase {tag}: interactive against EXPORT at scale {sph.scale}: "
+        f"mass scale {ms!r}, density sum rel diff {rel:.6e}, of which "
+        f"dropped splats account for {counted:.6e} (interactive frame drops "
+        f"{d_i}, EXPORT pieces {drops}, of {visible} visible splats); corr "
+        f"{corr:.7f}, max pixel diff {diff:.3e} of the max")
+    check(abs(ms - 1.0) <= 1e-6, f"{tag}: mass scale {ms} after completion")
+    check(corr > 0.9999, f"{tag}: correlation {corr} <= 0.9999")
+    check(abs(rel - counted) <= 1e-4, f"{tag}: density sum rel diff {rel} "
+          f"is not the dropped splats' {counted} within 1e-4")
+
+
+def phase_interactive(vis):
+    """Phases I1-I4, the interactive LOD path (CHANGE and REFINE column
+    frames) on the EXPORT scene's Visualizer; the view is restored after.
+    Returns (launches during I2's frames, K1's and K2's largest
+    differences from their plain versions in I1, a summary dict)."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch.ops import (splat, splat_accum, splat_atlas,
+                                     splat_feed, splat_giant)
+    from topsy_tpu_torch.ops.morton import min_slice_width
+    from topsy_tpu_torch.progression import RenderProgressionColumns
+    from topsy_tpu_torch.render.sph import (_render_block_columns_fields,
+                                            column_launches)
+    from topsy_tpu_torch.visualizer import DrawReason
+    t_all = time.perf_counter()
+    sph, store = vis._sph, vis.store
+    rotation, scale0 = np.array(sph.rotation_matrix), sph.scale
+    vis.show_colorbar = vis.show_scalebar = vis.show_status = False
+    _, atlas_rows, atlas_cols = splat_atlas.atlas_layout(
+        splat.default_pyramid(RESOLUTION))
+    summary = {}
+
+    # ---- I1: K1 and K2 on column slices of one quantum, of three, and on
+    # the CHANGE frame's own full-width launch, each call timed alone
+    q = min_slice_width(store.presorted_layout)
+    pad_group = store.presorted_layout.pad_group
+    matrix = sph._matrix().astype(np.float32)
+    scale = np.float32(sph.scale)
+    feed_err = accum_err = 0.0
+    # per call "w<width>_p<piece>[_<shape>]": (ms, plain ms, bound ms)
+    feed_t, accum_t = {}, {}
+    for col0, width in ((0, q), (q, 3 * q), (0, pad_group)):
+        sliced, vals, gb, msk, pieces, kw = column_launches(
+            store.presorted_fields(),
+            store.presorted_values_cm_for(sph._buffer_name),
+            store.presorted_group_buckets, sph._feed_cull_mask(), col0, width)
+        drops, kernels_ms = [], 0.0
+        for i, piece in enumerate(pieces):
+            label = f"I1 width {width} piece {piece}"
+            key = f"w{width}_p{i}"
+            fargs, fkw = splat_atlas.feed_call(
+                sliced, vals, matrix, RESOLUTION, scale, gb, mask=msk,
+                piece=piece, bucket_thresh=sph._giant_bucket)
+            out_k = splat_feed.splat_feed_triton(*fargs, **fkw)
+            feed_err = max(feed_err, compare_feed(
+                label, out_k, splat_feed.splat_feed_plain(*fargs, **fkw)))
+            main_kw, t2_kw, t3_kw, dropped = splat_atlas.deposit_calls(
+                out_k, C=2, G=width, atlas_rows=atlas_rows,
+                atlas_cols=atlas_cols, **kw)
+            drops.append(int(dropped.item()))
+            feed_t[key] = (
+                timed_ms(lambda: splat_feed.splat_feed_triton(*fargs, **fkw),
+                         5),
+                timed_ms(lambda: splat_feed.splat_feed_plain(*fargs, **fkw),
+                         2),
+                k1_bound(fkw, width)[0])
+            kernels_ms += feed_t[key][0]
+            timing = (f"K1 {feed_t[key][0]:.3f} ms (plain "
+                      f"{feed_t[key][1]:.3f} ms, bound {feed_t[key][2]:.4f} "
+                      "ms)")
+            for shape, dkw in (("main", main_kw), ("tier2", t2_kw),
+                               ("tier3", t3_kw)):
+                err, ref_max, active = compare_k2(f"{label} {shape}", dkw)
+                accum_err = max(accum_err, err)
+                t = accum_t[f"{key}_{shape}"] = (
+                    timed_ms(lambda: splat_accum.accumulate_groups_cuda(
+                        **dkw), 5),
+                    timed_ms(lambda: splat_accum.accumulate_groups_plain(
+                        **dkw), 2),
+                    k2_bound(dkw)[0])
+                kernels_ms += t[0]
+                timing += (f"; K2 {shape} (G {dkw['group']}, groups "
+                           f"{dkw['flags'].shape[0]}, active {active}) "
+                           f"{t[0]:.3f} ms (plain {t[1]:.3f} ms, bound "
+                           f"{t[2]:.4f} ms)")
+            log(f"phase {label}: ok; K1 bit-exact on integers, K2 within 1e-5"
+                f" of the atlas maximum; dropped {drops[-1]}; {timing}")
+            del out_k, main_kw, t2_kw, t3_kw
+        launch_ms = timed_ms(lambda: _render_block_columns_fields(
+            store.presorted_fields(),
+            store.presorted_values_cm_for(sph._buffer_name),
+            store.presorted_group_buckets, sph._feed_cull_mask(), matrix,
+            scale, col0, int(sph._giant_bucket), resolution=RESOLUTION,
+            width=width, depth_channel=False), 5)
+        log(f"phase I1 slice [{col0}, {col0 + width}): width {width} (power of"
+            f" two: {width & (width - 1) == 0}), n_groups {sliced[0].shape[0]}"
+            f", pieces {pieces}, dropped {drops}; whole column launch "
+            f"{launch_ms:.3f} ms, of which the kernels alone {kernels_ms:.3f}"
+            " ms")
+        summary[f"launch_ms_width_{width}"] = launch_ms
+        summary[f"kernels_ms_width_{width}"] = kernels_ms
+    check((3 * q) & (3 * q - 1), "the 3-quantum slice is a power of two")
+    summary.update(feed_t=feed_t, accum_t=accum_t)
+
+    # ---- I2: interactive views, each a CHANGE draw then REFINE draws ------
+    splat_feed.launches = 0
+    splat_accum.launches = 0
+    change_ms, refine_ms, n_frames, all_frames = [], [], [], 0
+    for v in range(2 + FRAMES):                  # two warm-up views
+        vis.rotate(0.0, 0.05)
+        frames = drive_view(vis)
+        check(isinstance(sph.render_progression, RenderProgressionColumns),
+              "CHANGE did not activate the columns progression")
+        all_frames += len(frames)
+        if v >= 2:
+            change_ms.append(frames[0][0])
+            refine_ms += [f[0] for f in frames[1:]]
+            n_frames.append(len(frames))
+        log(f"phase I2 view {v}{' (warm-up)' if v < 2 else ''}: frames "
+            "(ms by the frame clock, column ranges, dropped, mass scale) "
+            f"{[(round(f[0], 3),) + f[1:] for f in frames]}")
+    launches = {"splat_feed": splat_feed.launches,
+                "accumulate_groups": splat_accum.launches}
+    check(launches["splat_feed"] > 0 and launches["accumulate_groups"] > 0,
+          f"a kernel was not launched on the interactive path: {launches}")
+    # the frame's two parts alone (CUDA events): the CHANGE render and the
+    # presentation (colormap, fit to the canvas, readback)
+    render_ms = timed_ms(lambda: sph.render(DrawReason.CHANGE), 5)
+    present_ms = timed_ms(lambda: vis._compose_presentation(
+        vis.canvas.width_physical, vis.canvas.height_physical), 5)
+    summary.update(
+        change_median_ms=statistics.median(change_ms),
+        refine_median_ms=(statistics.median(refine_ms) if refine_ms
+                          else None),
+        frames_to_completion=n_frames, render_ms=render_ms,
+        present_ms=present_ms)
+    log(f"phase I2: {FRAMES} views; CHANGE frame median "
+        f"{summary['change_median_ms']:.3f} ms (frames "
+        f"{[round(t, 3) for t in change_ms]}); REFINE frames "
+        f"{[round(t, 3) for t in refine_ms]}; frames to completion "
+        f"{n_frames}; launches during the views' {all_frames} frames "
+        f"{launches}; alone: CHANGE render {render_ms:.3f} ms, presentation "
+        f"{present_ms:.3f} ms")
+
+    # ---- I3: the completed interactive image against EXPORT ---------------
+    against_export(vis, "I3")
+
+    # ---- I4: a view where the giant layer runs -----------------------------
+    # zoomed in, more buckets hold giants than the candidate pool holds
+    # (the plan then disables the layer); zoomed out, fewer do
+    num_levels = splat.default_pyramid(RESOLUTION).num_levels
+    for s in (250.0, 300.0, 400.0, 800.0):
+        size, thresh = splat_giant.giant_plan(store.giant_meta(), RESOLUTION,
+                                              s, num_levels)
+        log(f"phase I4 giant plan at scale {s}: {size} candidates, bucket "
+            f"threshold {thresh}")
+        if size > 0:
+            break
+    check(size > 0, "no scale up to 800 plans a giant layer")
+    vis.scale = s
+    sph.render(DrawReason.EXPORT)
+    check(sph._giant_image is not None, "the EXPORT frame drew no giant layer")
+    raw = sph.get_image()[..., 0].astype(np.float64)
+    ps = torch.as_tensor(vis.data_loader.get_pos_smooth(),
+                         device=store.device)
+    vals = torch.as_tensor(store.host_values_for(sph._buffer_name),
+                           device=store.device)
+    truth = splat.splat_scatter(ps, vals, sph._matrix().astype(np.float32),
+                                RESOLUTION, np.float32(s))
+    truth = truth[..., 0].cpu().numpy().astype(np.float64)
+    del ps, vals
+    rel = abs(raw.sum() / truth.sum() - 1.0)
+    corr = float(np.corrcoef(raw.ravel(), truth.ravel())[0, 1])
+    log(f"phase I4 EXPORT at scale {s} with the giant layer: density sum rel"
+        f" diff {rel:.3e}, corr {corr:.6f} against splat_scatter")
+    check(rel <= 1e-2, f"I4 density sum rel diff {rel} > 1e-2")
+    check(corr > 0.999, f"I4 density correlation {corr} <= 0.999")
+    frames = drive_view(vis)
+    log(f"phase I4 view: frames {[(round(f[0], 3),) + f[1:] for f in frames]}")
+    check(sph._giant_image is not None, "the interactive frame drew no giant "
+          "layer")
+    against_export(vis, "I4")
+    summary["giant_scale"] = s
+
+    vis.rotation_matrix = rotation
+    vis.scale = scale0
+    sph.render(DrawReason.EXPORT)
+    log(f"phase I: {time.perf_counter() - t_all:.1f} s")
+    return launches, feed_err, accum_err, summary
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -590,32 +919,15 @@ def main() -> int:
         # K1, exactly as the renderer feeds this piece
         fargs, fkw = feed_args(vis, piece)
         out_k = splat_feed.splat_feed_triton(*fargs, **fkw)
-        out_p = splat_feed.splat_feed_plain(*fargs, **fkw)
-        err = 0.0
-        for name, a, b in zip(("ay", "ax", "ih", "cfit", "cspill"),
-                              out_k[:5], out_p[:5]):
-            check(torch.isfinite(a).all(), f"K1 piece {piece} {name} not "
-                  "finite")
-            check(torch.allclose(a, b, rtol=1e-6, atol=0.0),
-                  f"K1 piece {piece} {name} differs from the plain version "
-                  f"beyond rtol 1e-6: max {(a - b).abs().max().item()}")
-            err = max(err, (a - b).abs().max().item())
-        for name, a, b in zip(("w0", "c0", "ce", "flags", "nspill"),
-                              out_k[5:], out_p[5:]):
-            n_diff = int((a != b).sum().item())
-            check(n_diff == 0, f"K1 piece {piece} {name}: {n_diff} groups "
-                  "differ")
+        err = compare_feed(f"piece {piece}", out_k,
+                           splat_feed.splat_feed_plain(*fargs, **fkw))
         feed_err = max(feed_err, err)
         if i == 0:
             feed_ms = timed_ms(
                 lambda: splat_feed.splat_feed_triton(*fargs, **fkw), 10)
             feed_plain_ms = timed_ms(
                 lambda: splat_feed.splat_feed_plain(*fargs, **fkw), 3)
-            slots = fkw["piece_groups"] * G
-            feed_bound = bound(
-                slots * (4 + 2) * 4 + fkw["piece_groups"] * 8 * 4
-                + slots * (3 + 2 * 2) * 4 + fkw["piece_groups"] * 5 * 4,
-                slots * K1_OPS_PER_SLOT, F32_OPS_PER_S)
+            feed_bound = k1_bound(fkw, G)
         kinds = torch.bincount((out_k[8] // 4).long(), minlength=5).tolist()
         log(f"phase K1 piece {piece}: ok; max abs diff {err:.3e}; groups by "
             f"kind [inactive, tiny, poly, mixed, masked] = {kinds}; spilled "
@@ -626,16 +938,8 @@ def main() -> int:
         # K2 in the three call shapes that follow this feed
         calls, dropped = k2_calls(out_k, G, atlas_rows, atlas_cols)
         for shape, kw in calls.items():
-            a_k = splat_accum.accumulate_groups_cuda(**kw)
-            a_p = splat_accum.accumulate_groups_plain(**kw)
-            ref_max = a_p.abs().max().item()
-            err = (a_k - a_p).abs().max().item()
-            check(torch.isfinite(a_k).all(),
-                  f"K2 piece {piece} {shape}: atlas not finite")
-            check(err <= 1e-5 * ref_max, f"K2 piece {piece} {shape}: max "
-                  f"abs diff {err} > 1e-5 * {ref_max}")
+            err, ref_max, active = compare_k2(f"piece {piece} {shape}", kw)
             accum_err = max(accum_err, err)
-            active = int(((kw["flags"] // 4) > 0).sum().item())
             if shape == "tier3_stragglers":
                 check(active > 0 or int(out_k[9].sum().item()) == 0,
                       f"K2 piece {piece} tier3_stragglers: no active group "
@@ -664,7 +968,7 @@ def main() -> int:
                     log(f"phase K2 piece {piece} {shape} runs sharing ({key}): "
                         f"{run_summary(lengths)}")
         log(f"piece {piece} dropped {int(dropped.item())}")
-        del out_k, out_p, a_k, a_p
+        del out_k
 
     # ---- phase 6: the EXPORT path ------------------------------------------
     splat_feed.launches = 0
@@ -726,6 +1030,11 @@ def main() -> int:
     check(pres[..., :3].std() > 0, "presentation image is constant")
 
     del truth, ps, vals
+
+    # ---- phases I1-I4: the interactive path on the same Visualizer ---------
+    ilaunches, i_feed_err, i_accum_err, isummary = phase_interactive(vis)
+    feed_err = max(feed_err, i_feed_err)
+    accum_err = max(accum_err, i_accum_err)
 
     # ---- phase S1: the surface mode on the same Visualizer -----------------
     t0 = time.perf_counter()
@@ -968,19 +1277,28 @@ def main() -> int:
         {"name": "splat_feed", "route": "triton",
          "source": "topsy_tpu_torch/ops/splat_feed.py",
          "replaces": "topsy_tpu/ops/splat_feed.py:207",
-         "launches": launches["splat_feed"], "max_abs_err": feed_err,
+         "launches": launches["splat_feed"] + ilaunches["splat_feed"],
+         "launches_by_path": {"export": launches["splat_feed"],
+                              "interactive": ilaunches["splat_feed"]},
+         "max_abs_err": feed_err,
          "ms": feed_ms, "plain_ms": feed_plain_ms,
          "bound_ms": feed_bound[0], "bound_by": feed_bound[1],
-         "library_ms": None},
+         "library_ms": None,
+         **interactive_times(isummary["feed_t"])},
         {"name": "accumulate_groups", "route": "cuda",
          "source": "topsy_tpu_torch/csrc/splat_accum.cu",
          "replaces": "topsy_tpu/ops/splat_pallas.py:317",
-         "launches": launches["accumulate_groups"], "max_abs_err": accum_err,
+         "launches": (launches["accumulate_groups"]
+                      + ilaunches["accumulate_groups"]),
+         "launches_by_path": {"export": launches["accumulate_groups"],
+                              "interactive": ilaunches["accumulate_groups"]},
+         "max_abs_err": accum_err,
          "ms": accum_ms["main"], "plain_ms": accum_plain_ms["main"],
          "bound_ms": accum_bound["main"][0],
          "bound_by": accum_bound["main"][1], "library_ms": None,
          "ms_by_shape": accum_ms, "plain_ms_by_shape": accum_plain_ms,
-         "bound_ms_by_shape": {k: v[0] for k, v in accum_bound.items()}},
+         "bound_ms_by_shape": {k: v[0] for k, v in accum_bound.items()},
+         **interactive_times(isummary["accum_t"])},
         {"name": "accumulate_max_groups", "route": "cuda",
          "source": "topsy_tpu_torch/csrc/zsplat_accum.cu",
          "replaces": "topsy_tpu/ops/zsplat_pallas.py:203",

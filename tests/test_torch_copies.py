@@ -60,6 +60,10 @@ def _camera():
         np.testing.assert_array_equal(
             p_camera.world_to_clip_matrix(q, off, s),
             r_camera.world_to_clip_matrix(q, off, s))
+        angle = rng.uniform(-np.pi, np.pi)
+        for name in ("x_rotation_matrix", "y_rotation_matrix"):
+            np.testing.assert_array_equal(getattr(p_camera, name)(angle),
+                                          getattr(r_camera, name)(angle))
 
 
 def _drawreason():

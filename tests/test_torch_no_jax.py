@@ -1,4 +1,5 @@
-"""The PyTorch port imports and renders with jax and topsy_tpu made
+"""The PyTorch port imports and renders (univariate EXPORT, CHANGE and
+REFINE frames, surface EXPORT frames) with jax and topsy_tpu made
 unimportable, and its sources import neither."""
 
 import os
@@ -24,6 +25,12 @@ im = vis.get_sph_image()
 assert im.shape == (64, 64) and np.isfinite(im).all() and im.sum() > 0
 pres = vis.get_sph_presentation_image()
 assert pres.shape == (64, 64, 4) and pres.dtype == np.uint8
+from topsy_tpu_torch.drawreason import DrawReason
+vis.show_colorbar = vis.show_scalebar = False
+frame = vis.draw(DrawReason.CHANGE)
+assert frame.shape == (480, 640, 4) and vis._sph.last_column_ranges
+vis._sph.render(DrawReason.REFINE)
+assert np.isfinite(vis._sph.get_image()).all()
 vis.render_mode = "surface"
 raw = vis._sph.get_image()
 assert raw.shape == (64, 64, 2) and np.isfinite(raw).all()

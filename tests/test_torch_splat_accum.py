@@ -248,11 +248,13 @@ def _card_case(C_, G, rolled, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rolled", [True, False])
-@pytest.mark.parametrize("G", [1, 64, 512])
+@pytest.mark.parametrize("G", [1, 64, 512, 128, 192, 384, 16, 24, 48])
 @pytest.mark.parametrize("C_", [1, 2, 3, 4])
 def test_kernel_matches_plain_on_card(C_, G, rolled):
     """K2 against the plain version on the card: every (kind, class)
-    pairing, C = 1..4, groups of 1, 64 and 512 particles, rolled (256-column
+    pairing, C = 1..4, groups of 1, 64 and 512 particles, the interactive
+    column slices' main-pass widths 128, 192 and 384 and their tier-2
+    widths 16, 24 and 48, rolled (256-column
     windows) and unrolled (full-width) launches, anchors clipped at the
     atlas's bottom and right edges, runs of groups sharing one window;
     accumulated onto a nonzero atlas.  Held at 1e-5 * max|atlas|."""

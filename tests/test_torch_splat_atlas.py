@@ -170,3 +170,65 @@ def test_mass_against_scatter(scene):
     assert im[..., 0].sum() == pytest.approx(ref[..., 0].sum(), rel=1e-2)
     corr = np.corrcoef(im[..., 0].ravel(), ref[..., 0].ravel())[0, 1]
     assert corr > 0.999
+
+
+def _mask(layout, seed=3):
+    rng = np.random.RandomState(seed)
+    return (rng.random_sample(layout.n_out) < 0.5).astype(np.float32).reshape(
+        -1, layout.pad_group)
+
+
+@pytest.mark.parametrize("merge,width,pad_multiple", [
+    (False, 128, 8), (False, 128, 64), (False, 384, 8), (False, 384, 64),
+    (True, 128, 8), (True, 128, 64)])
+def test_slice_column_fields_matches_reference(scene, merge, width,
+                                               pad_multiple):
+    """The column slice (fields, values, buckets, mask) equals the
+    reference's, merged and un-merged, with the group axis padded; col0 200
+    is clipped for the 384-wide slice."""
+    _, _, layout, st, ref_in = scene
+    mask = _mask(layout)
+    got = p_atlas.slice_column_fields(
+        st["fields"], st["values_cm"], st["group_buckets"],
+        torch.from_numpy(mask), 200, width, merge=merge,
+        pad_multiple=pad_multiple)
+    ref = r_atlas.slice_column_fields(*ref_in, jnp.asarray(mask),
+                                      jnp.int32(200), width, merge=merge,
+                                      pad_multiple=pad_multiple)
+    assert got[0][0].shape[0] % pad_multiple == 0
+    for g, r in zip(got[0], ref[0]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  np.stack([np.asarray(v) for v in ref[1]]))
+    for g, r in zip(got[2:], ref[2:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_slice_column_fields_merged_needs_a_divisor(scene):
+    _, _, _, st, ref_in = scene
+    with pytest.raises(ValueError, match="divisor"):
+        p_atlas.slice_column_fields(st["fields"], st["values_cm"],
+                                    st["group_buckets"], None, 0, 384)
+    with pytest.raises(AssertionError):
+        r_atlas.slice_column_fields(*ref_in, None, jnp.int32(0), 384)
+
+
+def test_column_slice_matches_reference(scene):
+    """A 384-wide un-merged column slice under the interactive launch's
+    spill budgets (512 tier-2 groups, 4,096 tier-3 stragglers): the
+    cross-engine bounds and equal ``dropped``."""
+    _, _, _, st, ref_in = scene
+    m = _matrix(35.0)
+    budgets = dict(spill_group_cap=512, spill_t3_cap=4096)
+    sl = p_atlas.slice_column_fields(st["fields"], st["values_cm"],
+                                     st["group_buckets"], None, 128, 384,
+                                     merge=False)
+    im_p, d_p = p_atlas.splat_atlas_fields(sl[0], sl[1], m, RES, SCALE,
+                                           sl[2], **budgets)
+    r_f, r_v, r_gb, _ = r_atlas.slice_column_fields(
+        *ref_in, None, jnp.int32(128), 384, merge=False)
+    im_r, d_r = jax.jit(lambda f, v, mm, k: r_atlas.splat_atlas_fields(
+        f, v, mm, RES, SCALE, k, engine="pallas", **budgets))(
+        r_f, r_v, jnp.asarray(m), r_gb)
+    assert sl[0][0].shape[1] == 384
+    _assert_cross_engine(im_p.numpy(), int(d_p), np.asarray(im_r), int(d_r))

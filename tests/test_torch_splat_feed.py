@@ -3,7 +3,9 @@ feed kernel run in interpret mode, output by output, on the 50k-particle
 host-presorted scene of tests/test_splat_fields.py at RES 256.
 
 Tolerances: the f32 planes (ay, ax, ih, cfit, cspill) rtol 1e-6; the int32
-vectors (w0, c0, ce, flags, nspill) equal."""
+vectors (w0, c0, ce, flags, nspill) equal.  Column slices of the layout
+(``splat_atlas.slice_column_fields``, as the interactive path cuts them)
+give groups whose width is not a power of two."""
 
 import numpy as np
 import pytest
@@ -151,6 +153,56 @@ def test_feed_nonzero_piece(scene):
     got, ref = _run_both(st, rot_deg=10.0, g0=pg, piece_groups=pg)
     assert got[0].shape[0] == pg
     _compare(got, ref)
+
+
+def _sliced(st, width, col0=64):
+    """The scene's state cut to columns [col0, col0 + width), one group per
+    original group, as the interactive column launch cuts it."""
+    fields, values_cm, gb, _ = p_atlas.slice_column_fields(
+        st["fields"], st["values_cm"], st["group_buckets"], None, col0,
+        width, merge=False)
+    return dict(st, fields=fields, values_cm=values_cm, group_buckets=gb)
+
+
+@pytest.mark.parametrize("width", [128, 192, 384])
+def test_feed_plain_matches_reference_at_slice_widths(scene, width):
+    """Groups of any width (one interactive column slice each) through the
+    plain feed and the interpreted Pallas feed."""
+    _, st = scene
+    sl = _sliced(st, width)
+    got, ref = _run_both(sl, rot_deg=25.0)
+    assert got[0].shape[1] == width
+    _compare(got, ref)
+    assert (got[8].numpy() // 4 > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,piece", [(192, None), (320, None),
+                                         (384, None), (384, (8, 37))])
+def test_kernel_matches_plain_on_card_at_slice_widths(scene, width, piece):
+    """K1 at group widths that are not powers of two (its lanes padded to
+    the next power of two and masked), on all groups and on a piece whose
+    group count does not fill the last program: integers equal, f32 planes
+    to rtol 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, st = scene
+    sl = _sliced(st, width)
+    dev = torch.device("cuda")
+    args, kw = p_atlas.feed_call(tuple(f.to(dev) for f in sl["fields"]),
+                                 sl["values_cm"].to(dev),
+                                 _matrix(20.0, SCALE), RES, np.float32(SCALE),
+                                 sl["group_buckets"].to(dev),
+                                 pyramid=p_atlas.default_pyramid(RES),
+                                 piece=piece)
+    got = p_feed.splat_feed_triton(*args, **kw)
+    ref = p_feed.splat_feed_plain(*args, **kw)
+    assert got[0].shape == ref[0].shape
+    assert (ref[8] // 4 > 0).any()
+    for g, r in zip(got[:5], ref[:5]):
+        assert torch.allclose(g, r, rtol=1e-6, atol=0.0)
+    for g, r in zip(got[5:], ref[5:]):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.cuda

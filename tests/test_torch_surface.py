@@ -142,7 +142,7 @@ def test_density_cut_and_modes(port):
     assert (after[..., 1] > 0).sum() < (before[..., 1] > 0).sum()
     sph.set_density_cut_percentile(50.0)
     sph.invalidate()
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(NotImplementedError, match="M11"):
         sph.render(DrawReason.CHANGE)
     with pytest.raises(NotImplementedError, match="M10"):
         port.render_mode = "bivariate"

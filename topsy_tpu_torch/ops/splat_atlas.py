@@ -1,8 +1,9 @@
 """The presorted splat path: feed, deposit, spill tiers, pyramid collapse.
 
 Counterpart of ``atlas_layout``, ``spill_pass`` (here ``spill_tiers``, which
-returns the two tiers' deposit operands), ``splat_atlas_fields`` and
-``collapse_atlas`` in ``topsy_tpu/ops/splat_atlas.py``.  Every pyramid level
+returns the two tiers' deposit operands), ``splat_atlas_fields``,
+``slice_column_fields`` and ``collapse_atlas`` in
+``topsy_tpu/ops/splat_atlas.py``.  Every pyramid level
 lives in one padded channel-major atlas (C, atlas_rows, atlas_cols); the
 feed (``splat_feed``) computes anchors, flags and coefficients, the deposit
 (``splat_accum``) accumulates each group into its window, and the spill
@@ -34,6 +35,26 @@ FOOT = 8.0
 T3_CAP = 1024
 #: window rows of the presorted path
 PRESORTED_WINDOW_ROWS = 96
+#: spill budgets of an interactive column launch (tier-2 groups, tier-3
+#: stragglers), raised over a frame's: the reference's column launch
+COLUMN_SPILL_GROUP_CAP = 4 * config.SPLAT_SPILL_GROUP_CAP
+COLUMN_T3_CAP = 4096
+
+
+def column_pad_multiple(pad_group: int, width: int) -> int:
+    """The multiple a column launch over ``width`` of the layout's
+    ``pad_group`` columns pads its group count to (the reference's
+    ``subgroups``); the padding changes the spill budget, hence
+    ``dropped``."""
+    return min(64, SUBGROUPS * (pad_group // width))
+
+
+def column_pieces(n_groups: int) -> list[tuple[int, int]]:
+    """(first group, groups) of the group-axis pieces of a column launch,
+    each at most ``config.SPLAT_COLUMNS_GROUP_CAP`` groups with its own
+    spill budget."""
+    cap = config.SPLAT_COLUMNS_GROUP_CAP
+    return [(g0, min(cap, n_groups - g0)) for g0 in range(0, n_groups, cap)]
 
 
 def atlas_layout(pyramid: PyramidSpec):
@@ -58,7 +79,7 @@ def _topk_desc_stable(values: torch.Tensor, k: int) -> torch.Tensor:
 
 def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
                 n_spill, *, C, G, atlas_rows, atlas_cols, window_rows,
-                group_cap=None):
+                group_cap=None, t3_cap=None):
     """The spill tiers' deposit operands (particles too sparse for their
     group's window).
 
@@ -68,7 +89,10 @@ def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
     ``accumulate_groups`` calls (tier 2: groups of G/8 over full-width
     windows; tier 3: one-particle groups) and the dropped count as a 0-dim
     int tensor.  Compaction is group-granular: the ``k_groups`` groups with
-    the most spills are gathered in layout order.  The tiers always run
+    the most spills are gathered in layout order.  ``group_cap`` and
+    ``t3_cap`` override the budgets of tier 2 (``SPLAT_SPILL_GROUP_CAP``
+    groups) and tier 3 (``T3_CAP`` stragglers); the interactive column
+    launch raises both.  The tiers always run
     (the reference skips them when nothing spilled; then every gathered
     group here is inactive and ``dropped`` is 0, so the result is the same),
     which keeps the frame free of host synchronisation."""
@@ -124,7 +148,7 @@ def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
                  window_cols=atlas_cols, **common)
 
     # ---- tier 3: one-particle groups (fit by construction) ---------------
-    T3 = min(T3_CAP, spill_cap)
+    T3 = min(T3_CAP if t3_cap is None else t3_cap, spill_cap)
     ar = torch.arange(spill_cap, device=dev)
     # the first T3 stragglers in gathered order, then non-stragglers
     idx3 = torch.sort(torch.where(straggler, ar, ar + spill_cap)).indices[:T3]
@@ -221,7 +245,8 @@ def feed_call(fields, values_cm, matrix, resolution, scale, group_buckets,
 
 
 def deposit_calls(feed_out, *, C, G, atlas_rows, atlas_cols,
-                  window_rows=PRESORTED_WINDOW_ROWS, spill_group_cap=None):
+                  window_rows=PRESORTED_WINDOW_ROWS, spill_group_cap=None,
+                  spill_t3_cap=None):
     """The keyword arguments of the three ``accumulate_groups`` calls that
     follow a feed — the main pass, spill tier 2 and spill tier 3 — and the
     piece's dropped count (0-dim int tensor)."""
@@ -235,7 +260,7 @@ def deposit_calls(feed_out, *, C, G, atlas_rows, atlas_cols,
         ay.reshape(-1), ax.reshape(-1), ih.reshape(-1), chans, spilled,
         nspill, nspill.sum(), C=C, G=G, atlas_rows=atlas_rows,
         atlas_cols=atlas_cols, window_rows=window_rows,
-        group_cap=spill_group_cap)
+        group_cap=spill_group_cap, t3_cap=spill_t3_cap)
     return main, tier2, tier3, dropped
 
 
@@ -243,7 +268,8 @@ def splat_atlas_fields(fields, values_cm, matrix, resolution, scale,
                        group_buckets, mask=None,
                        pyramid: PyramidSpec | None = None,
                        depth_channel=False, piece=None, prange=None,
-                       giants="auto", spill_group_cap=None):
+                       giants="auto", spill_group_cap=None,
+                       spill_t3_cap=None):
     """The presorted splat path over the transposed field layout.
 
     fields: (x, y, z, h) each (n_groups, GROUP) f32; values_cm: (C_in,
@@ -253,7 +279,8 @@ def splat_atlas_fields(fields, values_cm, matrix, resolution, scale,
     viewport half-width (a numpy float32 keeps the reference's float32
     arithmetic for px_per_world); piece: optional (g0, piece_groups);
     prange: optional (start, count) of global slots; giants: 'auto', 'none'
-    or a smoothing-bucket threshold.
+    or a smoothing-bucket threshold; spill_group_cap / spill_t3_cap: the
+    spill tiers' budgets (``spill_tiers``).
 
     Returns (image (res, res, C), dropped as a 0-dim int tensor)."""
     n_groups, G = fields[0].shape
@@ -314,7 +341,7 @@ def splat_atlas_fields(fields, values_cm, matrix, resolution, scale,
     feed_out = splat_feed.splat_feed(*args, **kwargs)
     main, tier2, tier3, dropped = deposit_calls(
         feed_out, C=C, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols,
-        spill_group_cap=spill_group_cap)
+        spill_group_cap=spill_group_cap, spill_t3_cap=spill_t3_cap)
     atlas = splat_accum.accumulate_groups(**main)
     splat_accum.accumulate_groups(**tier2, atlas0=atlas)
     splat_accum.accumulate_groups(**tier3, atlas0=atlas)
@@ -322,6 +349,63 @@ def splat_atlas_fields(fields, values_cm, matrix, resolution, scale,
     if giant_args is not None:
         image = image + splat_giant.giant_image(*giant_args, resolution)
     return image, dropped
+
+
+def slice_column_fields(fields, values_cm, group_buckets, mask, col0: int,
+                        width: int, merge: bool = True,
+                        pad_multiple: int = 8):
+    """Columns [col0, col0 + width) of the transposed field layout, for
+    ``splat_atlas_fields``.
+
+    ``merge=True``: the (n_groups, width) slice reshapes row-major into
+    merged groups of pad_group / width adjacent original groups (width
+    must divide pad_group; the layout's run padding keeps merged groups
+    single-level, ``morton.min_slice_width``).  ``merge=False`` (the
+    renderer's route): one group per original group, (n_groups, width)
+    matrices at any width.  The group axis is then padded to a
+    ``pad_multiple`` multiple with inactive groups (positions ``PAD_POS``,
+    values and mask 0, the last group's bucket): the padding changes
+    ``n_groups`` and so the spill tiers' budget, as in the reference.
+
+    values_cm: (C_in, n_groups, pad_group) tensor or a C_in-sequence of
+    (n_groups, pad_group); mask: (n_groups, pad_group) or None.  Returns
+    (fields, values_cm (C_in, groups, cols), group_buckets, mask), each
+    contiguous; the inputs themselves when nothing is sliced or padded."""
+    from .morton import PAD_POS
+    ng, pad_group = fields[0].shape
+    if isinstance(values_cm, (list, tuple)):
+        values_cm = torch.stack(list(values_cm))
+    if not 0 < width <= pad_group or (merge and pad_group % width):
+        raise ValueError(f"column width {width} for groups of {pad_group}"
+                         + (" (merged slices need a divisor)" if merge
+                            else ""))
+    c0 = min(max(int(col0), 0), pad_group - width)
+    if width != pad_group:
+        cols = slice(c0, c0 + width)
+        rows = (-1, pad_group) if merge else (ng, width)
+        fields = tuple(f[:, cols].reshape(rows).contiguous() for f in fields)
+        values_cm = values_cm[:, :, cols].reshape(
+            (values_cm.shape[0],) + rows).contiguous()
+        if merge:
+            group_buckets = group_buckets.reshape(-1, pad_group // width)[:, 0]
+        if mask is not None:
+            mask = mask[:, cols].reshape(rows).contiguous()
+    mg, g_cols = fields[0].shape
+    pad_rows = (-mg) % pad_multiple
+    if pad_rows:
+        def pad(arr, fill):
+            return torch.cat([arr, torch.full(arr.shape[:-2] + (pad_rows,
+                                                                g_cols),
+                                              fill, dtype=arr.dtype,
+                                              device=arr.device)], dim=-2)
+
+        fields = tuple(pad(f, PAD_POS) for f in fields)
+        values_cm = pad(values_cm, 0.0)
+        group_buckets = torch.cat(
+            [group_buckets, group_buckets[-1:].expand(pad_rows)])
+        if mask is not None:
+            mask = pad(mask, 0.0)
+    return fields, values_cm, group_buckets, mask
 
 
 def collapse_atlas(atlas: torch.Tensor, pyramid: PyramidSpec) -> torch.Tensor:

@@ -15,7 +15,12 @@ by device-memory bandwidth (4 + C_in (+ mask) f32 reads and 3 + 2C f32
 writes per particle); the Triton kernel reads each group's 512-lane rows
 once into registers, does the row reductions there, and writes every output
 once.  Division is IEEE (``div_rn``) and FMA contraction is off, so the fit
-tests and floors round exactly as the plain version does.
+tests and floors round exactly as the plain version does.  A group may hold
+any number G of lanes, as the reference's blocks ``(b_g, group)`` do: the
+program pads its lane axis to the next power of two (``tl.arange`` needs
+one), masks the padded lanes out of every load and store, and gives them
+neutral values in every lane reduction, so they never move an anchor or
+make a group active, spilled or big.
 
 ``params_f`` (16,) float32 and ``sp_i`` (4,) int32 are host (numpy) arrays:
 ``[m00..m23, px_per_world, 1/px_per_world, 0, 0]`` and ``[g0, start, count,
@@ -230,15 +235,16 @@ def _triton_kernel():
             res_half, norm_centre, inv_halfwidth, sentinel_ay, col_pad,
             foot, margin, w0_top, c0_top, big_th, h_min, h_trunc,
             C_IN: tl.constexpr, DEPTH: tl.constexpr, RANGED: tl.constexpr,
-            HAS_MASK: tl.constexpr, G: tl.constexpr, BG: tl.constexpr,
-            N_NORM: tl.constexpr, BAND: tl.constexpr,
+            HAS_MASK: tl.constexpr, G: tl.constexpr, GP2: tl.constexpr,
+            BG: tl.constexpr, N_NORM: tl.constexpr, BAND: tl.constexpr,
             WINDOW_ROWS: tl.constexpr, SZ_R0: tl.constexpr,
             SZ_R1: tl.constexpr, SZ_R2: tl.constexpr):
         pid = tl.program_id(0)
         rows = pid * BG + tl.arange(0, BG)[:, None]          # piece-local
-        lanes = tl.arange(0, G)[None, :]
+        lanes = tl.arange(0, GP2)[None, :]                   # padded to 2^k
+        lane_ok = lanes < G
         rmask = rows < piece_groups
-        lmask = rmask & (lanes < G)
+        lmask = rmask & lane_ok
         grp = g0 + rows                                      # global group
         src = grp.to(tl.int64) * G + lanes
         dst = rows.to(tl.int64) * G + lanes
@@ -303,10 +309,15 @@ def _triton_kernel():
         ay_hi = ay + sup
         ax_lo = ax - sup
         ax_hi = ax + sup
-        lo_r = tl.min(ay_lo, axis=1, keep_dims=True)
-        hi_r = tl.max(ay_hi, axis=1, keep_dims=True)
-        lo_c = tl.min(ax_lo, axis=1, keep_dims=True)
-        hi_c = tl.max(ax_hi, axis=1, keep_dims=True)
+        # padded lanes take the neutral value of each lane reduction
+        lo_r = tl.min(tl.where(lane_ok, ay_lo, float("inf")), axis=1,
+                      keep_dims=True)
+        hi_r = tl.max(tl.where(lane_ok, ay_hi, -float("inf")), axis=1,
+                      keep_dims=True)
+        lo_c = tl.min(tl.where(lane_ok, ax_lo, float("inf")), axis=1,
+                      keep_dims=True)
+        hi_c = tl.max(tl.where(lane_ok, ax_hi, -float("inf")), axis=1,
+                      keep_dims=True)
 
         w0f = _clip(tl.floor(lo_r * (1.0 / BAND)) * BAND, 0.0, w0_top)
         ce_raw = tl.floor(lo_c)
@@ -325,7 +336,7 @@ def _triton_kernel():
                              other=0.0) * w
             else:
                 cc = v0 * z01 * w
-            cf = tl.where(fits, cc, 0.0)
+            cf = tl.where(fits & lane_ok, cc, 0.0)
             if c == 0:
                 abssum = tl.abs(cf)
                 spill_any = tl.abs(cc)
@@ -333,7 +344,7 @@ def _triton_kernel():
                 abssum = abssum + tl.abs(cf)
                 spill_any = spill_any + tl.abs(cc)
             tl.store(fit_ptr + c * out_cstride + dst, cf, mask=lmask)
-        spilled = (~fits) & (spill_any > 0.0)
+        spilled = (~fits) & (spill_any > 0.0) & lane_ok
         for c in tl.static_range(C_IN + DEPTH):
             if c < C_IN:
                 cc = tl.load(v_ptr + c * v_cstride + src, mask=lmask,
@@ -342,7 +353,7 @@ def _triton_kernel():
                 cc = v0 * z01 * w
             tl.store(sp_ptr + c * out_cstride + dst,
                      tl.where(spilled, cc, 0.0), mask=lmask)
-        nspill = tl.sum(tl.where(spilled & lmask, 1, 0), axis=1,
+        nspill = tl.sum(tl.where(spilled & rmask, 1, 0), axis=1,
                         keep_dims=True)
 
         sizes = tl.zeros_like(nspill) + 3
@@ -354,10 +365,12 @@ def _triton_kernel():
         sizes = tl.where(fit0, 0, sizes)
 
         active = tl.sum(abssum, axis=1, keep_dims=True) > 0.0
-        ih_max = tl.max(ih, axis=1, keep_dims=True)
-        ih_min = tl.min(ih, axis=1, keep_dims=True)
-        any_big = tl.max(tl.where((ih > 0.0) & (ih < big_th), 1.0, 0.0),
-                         axis=1, keep_dims=True) > 0.0
+        ih_max = tl.max(tl.where(lane_ok, ih, -float("inf")), axis=1,
+                        keep_dims=True)
+        ih_min = tl.min(tl.where(lane_ok, ih, float("inf")), axis=1,
+                        keep_dims=True)
+        any_big = tl.max(tl.where((ih > 0.0) & (ih < big_th) & lane_ok, 1.0,
+                                  0.0), axis=1, keep_dims=True) > 0.0
         kind = tl.where(~active, 0,
                         tl.where(ih_max < 0.0, 1,
                                  tl.where(any_big, 4,
@@ -417,8 +430,6 @@ def splat_feed_triton(fields, values, pergroup, params_f, sp_i, mask=None, *,
     dev = x.device
     if not x.is_cuda:
         raise ValueError("splat_feed_triton needs CUDA tensors")
-    if G & (G - 1):
-        raise ValueError(f"group size {G} must be a power of two")
     C = C_in + (1 if depth_channel else 0)
     for name, t in zip("xyzh", fields):
         _check(t, name, (n_groups, G), dev)
@@ -470,7 +481,8 @@ def splat_feed_triton(fields, values, pergroup, params_f, sp_i, mask=None, *,
         _f32(atlas_cols - WINDOW_COLS), _f32((1.0 / H_MAX) * (1.0 - 1e-6)),
         _f32(H_MIN), _f32(H_TRUNC),
         C_IN=C_in, DEPTH=int(depth_channel), RANGED=bool(ranged),
-        HAS_MASK=bool(has_mask), G=G, BG=BLOCK_GROUPS,
+        HAS_MASK=bool(has_mask), G=G, GP2=1 << (G - 1).bit_length(),
+        BG=BLOCK_GROUPS,
         N_NORM=len(ncoef), BAND=band, WINDOW_ROWS=window_rows,
         SZ_R0=min(SIZE_CLASSES[0][0], window_rows),
         SZ_R1=min(SIZE_CLASSES[1][0], window_rows),

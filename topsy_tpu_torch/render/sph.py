@@ -1,12 +1,18 @@
-"""The SPH renderer: the presorted EXPORT render loop.
+"""The SPH renderer: the presorted EXPORT and interactive render loops.
 
-Counterpart of ``SPHRenderer`` in ``topsy_tpu/render/sph.py`` for the
-EXPORT path: ``render(DrawReason.EXPORT)`` plans the exact giant layer
+Counterpart of ``SPHRenderer`` in ``topsy_tpu/render/sph.py`` over the host
+presort.  ``render(DrawReason.EXPORT)`` plans the exact giant layer
 (``_prepare_giants``), then renders the presorted snapshot through
 ``splat_atlas_fields`` in pieces of at most ``config.SPLAT_FEED_LAUNCH_CAP``
-particles and sums them.  ``get_image()`` returns the raw (mass, mass *
-quantity) framebuffer scaled by the photometric mass factor.  The
-interactive LOD path (CHANGE / REFINE frames) is ROADMAP item M9.
+particles and sums them.  CHANGE and REFINE frames switch the progression to
+``RenderProgressionColumns`` and render whole-column ranges of the presorted
+(n_groups, pad_group) matrices, one un-merged column slice per range
+(``_render_block_columns_fields``), with no per-frame sort and no host
+synchronisation: their device time is read later from the frame clock
+(``notify_presentation_barrier``).  A REFINE frame continues the range and
+keeps the view's giant layer.  ``get_image()`` returns the raw (mass, mass *
+quantity) framebuffer scaled by the photometric mass factor, which makes a
+partial frame look whole.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from .. import config
 from ..camera import world_to_clip_matrix
 from ..drawreason import DrawReason
 from ..ops import splat, splat_atlas, splat_giant
-from ..util import TimeDeviceOperation
+from ..util import FrameClock, TimeDeviceOperation
 from .store import ParticleStore
 
 logger = logging.getLogger(__name__)
@@ -42,6 +48,49 @@ def _render_giant_layer(pos_smooth, values, buckets, cell_ids, cell_table,
                                    resolution)
 
 
+def column_launches(fields, values_cm, group_buckets, mask, col0: int,
+                    width: int):
+    """The ``splat_atlas_fields`` calls of the interactive column launch
+    over columns [col0, col0 + width) of the presorted field matrices:
+    (sliced fields, values_cm, group_buckets, mask, pieces, keyword
+    arguments).
+
+    The slice is not merged (``slice_column_fields(merge=False)``): each
+    original group keeps its own tight window, at any width.  Its rows are
+    padded to ``splat_atlas.column_pad_multiple``, the group axis is split
+    into ``splat_atlas.column_pieces`` and each call has the column
+    launch's raised spill budgets, so the images and the summed dropped
+    count are the reference's."""
+    sliced, vals, gb, msk = splat_atlas.slice_column_fields(
+        fields, values_cm, group_buckets, mask, col0, width, merge=False,
+        pad_multiple=splat_atlas.column_pad_multiple(fields[0].shape[1],
+                                                     width))
+    kw = dict(spill_group_cap=splat_atlas.COLUMN_SPILL_GROUP_CAP,
+              spill_t3_cap=splat_atlas.COLUMN_T3_CAP)
+    return (sliced, vals, gb, msk,
+            splat_atlas.column_pieces(sliced[0].shape[0]), kw)
+
+
+def _render_block_columns_fields(fields, values_cm, group_buckets, mask,
+                                 matrix, scale, col0: int, giant_bucket: int,
+                                 *, resolution: int, width: int,
+                                 depth_channel: bool):
+    """Columns [col0, col0 + width) through ``splat_atlas_fields``
+    (``column_launches``), the pieces' images and dropped counts summed on
+    the device.  Returns (image, dropped as a 0-dim int tensor)."""
+    sliced, vals, gb, msk, pieces, kw = column_launches(
+        fields, values_cm, group_buckets, mask, col0, width)
+    image = dropped = None
+    for piece in pieces:
+        im, d = splat_atlas.splat_atlas_fields(
+            sliced, vals, matrix, resolution, scale, gb, mask=msk,
+            depth_channel=depth_channel, giants=giant_bucket, piece=piece,
+            **kw)
+        image = im if image is None else image + im
+        dropped = d if dropped is None else dropped + d
+    return image, dropped
+
+
 class SPHRenderer:
     """Density / mass-weighted-quantity renderer (2 channels)."""
 
@@ -55,6 +104,8 @@ class SPHRenderer:
         self._render_progression = render_progression
         self._render_timer = TimeDeviceOperation(
             config.GPU_TIMING_SMOOTH_WINDOW, device=store.device)
+        self._frame_clock = FrameClock(store.device)
+        self._pending_timing_prog = None
 
         self.scale = config.DEFAULT_SCALE
         self.rotation_matrix = np.eye(3)
@@ -70,6 +121,20 @@ class SPHRenderer:
         self._cell_table = store.cell_mask_table(None)
         self._cell_table_generation = None
         self._fields_mask = None
+        #: (col0, ncols) of each column launch of the last interactive frame
+        self.last_column_ranges: list = []
+
+    @property
+    def render_progression(self):
+        return self._render_progression
+
+    @property
+    def frame_clock(self) -> FrameClock:
+        """The clock of the last frame; the presentation stops it."""
+        return self._frame_clock
+
+    def needs_refine(self) -> bool:
+        return self._render_progression.needs_refine()
 
     def invalidate(self, draw_reason=DrawReason.CHANGE):
         if draw_reason not in (DrawReason.REFINE,
@@ -105,29 +170,97 @@ class SPHRenderer:
     def render(self, draw_reason=DrawReason.CHANGE):
         if draw_reason == DrawReason.PRESENTATION_CHANGE:
             return
-        if draw_reason != DrawReason.EXPORT:
+        columns = self._maybe_activate_columns(draw_reason)
+        if draw_reason != DrawReason.EXPORT and not columns:
             raise NotImplementedError(
-                f"{draw_reason}: the PyTorch port renders EXPORT frames only; "
-                "the interactive LOD path is ROADMAP item M9")
+                f"{draw_reason} without the column progression: the sorted "
+                "block path is ROADMAP item M13")
         prog = self._render_progression
-        prog.select_sphere(-np.asarray(self.position_offset), self.scale * 1.2)
-        self._refresh_cell_table()
+        if draw_reason != DrawReason.REFINE:
+            prog.select_sphere(-np.asarray(self.position_offset),
+                               self.scale * 1.2)
+            self._refresh_cell_table()
 
         matrix = self._matrix().astype(np.float32)
         scale = np.float32(self.scale)
+        # a measurement the previous frame left pending is stale now
+        self._discard_pending_timing()
+        self._frame_clock.start()
         prog.start_frame(draw_reason)
-        self._render_presorted(matrix, scale, first_block=True)
-        prog.mark_all_rendered(self._render_timer.total_time_in_frame())
-        self._finish_frame(prog)
 
-    def _finish_frame(self, prog):
-        """Close an EXPORT frame: barrier-free, so its enqueue-only timing
-        is discarded rather than fed to the fps running mean."""
+        if draw_reason == DrawReason.EXPORT:
+            self._render_presorted(matrix, scale, first_block=True)
+            prog.mark_all_rendered(self._render_timer.total_time_in_frame())
+            self._finish_frame(prog)
+            return
+
+        # an interactive frame: one launch per column range, the first
+        # block starting the image unless a REFINE frame continues it; the
+        # view's giant layer is planned once and kept across REFINE frames
+        first_block = draw_reason != DrawReason.REFINE or self._image is None
+        self._prepare_giants(matrix, scale, keep=not first_block)
+        self._dropped_splats = None
+        self.last_column_ranges = []
+        while (block := prog.get_block(
+                self._render_timer.total_time_in_frame())) is not None:
+            for s, l in zip(*block):
+                if l > 0:
+                    first_block = self._render_columns_range(
+                        matrix, scale, s, l, first_block)
+            prog.end_block(self._render_timer.total_time_in_frame())
+        self._finish_frame(prog, defer_timing=True)
+
+    def _finish_frame(self, prog, defer_timing: bool = False):
+        """Close a frame.  Both kinds run barrier-free.  An EXPORT frame's
+        enqueue-only timing is discarded rather than fed to the fps running
+        mean.  ``defer_timing`` (interactive frames): the device time is
+        reported later by whoever observes the frame's one barrier, the
+        presentation readback (``notify_presentation_barrier``) or the
+        caller's own sync (``notify_frame_time``); the LOD recommendation
+        waits for it, the photometric scale factor does not."""
         self._render_timer.end_frame(record=False)
-        self.last_render_mass_scale = prog.end_frame_get_scalefactor()
+        if defer_timing:
+            self._pending_timing_prog = prog
+            self.last_render_mass_scale = prog.end_frame_get_scalefactor(
+                defer_adapt=True)
+        else:
+            self.last_render_mass_scale = prog.end_frame_get_scalefactor()
         mean = self._render_timer.running_mean_duration
         self.last_render_fps = 1.0 / mean if mean > 0 else 0.0
         self.has_rendered = True
+
+    # -- deferred frame timing (one host round trip per interactive frame) ----
+
+    def notify_frame_time(self, seconds: float):
+        """Report the device time of the last interactive frame, measured by
+        a caller that observed its barrier.  Feeds the fps running mean and
+        the LOD scheduler's deferred adaptation; a no-op when no
+        measurement is pending."""
+        prog = self._pending_timing_prog
+        if prog is None:
+            return
+        self._pending_timing_prog = None
+        self._render_timer.record_external(seconds)
+        prog.report_deferred_timing(max(0.0, seconds))
+        mean = self._render_timer.running_mean_duration
+        self.last_render_fps = 1.0 / mean if mean > 0 else 0.0
+
+    def notify_presentation_barrier(self):
+        """Presentation hook, called once the presentation's readback has
+        landed and the frame clock is stopped: the clock's span, from the
+        frame's first launch to the end of the readback, is the time the
+        frame budget must cover (render, colormap and fit)."""
+        if self._pending_timing_prog is None:
+            return
+        seconds = self._frame_clock.seconds()
+        if seconds is not None:
+            self.notify_frame_time(seconds)
+
+    def _discard_pending_timing(self):
+        prog = self._pending_timing_prog
+        if prog is not None:
+            self._pending_timing_prog = None
+            prog.discard_deferred_timing()
 
     def _maybe_activate_columns(self, draw_reason) -> bool:
         """Switch the progression to sort-free column LOD over the host
@@ -153,9 +286,14 @@ class SPHRenderer:
             col_quantum=min_slice_width(layout), mip_tiers=[])
         return True
 
-    def _prepare_giants(self, matrix, scale):
-        """Per-frame giant planning: sets the exclusion bucket threshold and
-        the exact dense giant layer (or None)."""
+    def _prepare_giants(self, matrix, scale, keep: bool = False):
+        """Per-view giant planning: sets the exclusion bucket threshold of
+        every windowed launch and the exact dense giant layer (or None), a
+        framebuffer of its own that ``get_output_image`` folds in divided by
+        the mass scale.  ``keep`` (a REFINE continuation, same view) reuses
+        the plan and the layer."""
+        if keep and self._giant_bucket is not None:
+            return
         store = self._store
         num_levels = splat_atlas.default_pyramid(self._resolution).num_levels
         size, b_thresh = splat_giant.giant_plan(
@@ -177,6 +315,38 @@ class SPHRenderer:
         self._store.ensure_presorted()
         self._prepare_giants(matrix, scale)
         self._render_presorted_fields(matrix, scale, first_block)
+
+    def _render_columns_range(self, matrix, scale, col0: int, ncols: int,
+                              first_block: bool) -> bool:
+        """Columns [col0, col0 + ncols) of the presorted matrices in one
+        launch (``_render_block_columns_fields``), added to the frame's
+        image and its dropped count (summed on the device).  The host
+        layout has no decimation tiers, so the progression's
+        ``last_block_tier`` always names the main layout (tier 0).  Returns
+        the updated ``first_block``."""
+        tier = self._render_progression.last_block_tier
+        if tier != 0:
+            raise NotImplementedError(
+                f"decimation tier {tier}: the column mips are ROADMAP item "
+                "M9b")
+        store = self._store
+        with self._render_timer:
+            im, dropped = _render_block_columns_fields(
+                store.presorted_fields(),
+                store.presorted_values_cm_for(self._buffer_name),
+                store.presorted_group_buckets, self._feed_cull_mask(),
+                matrix, scale, col0, int(self._giant_bucket),
+                resolution=self._resolution, width=ncols,
+                depth_channel=self._depth_channel)
+            self.last_column_ranges.append((col0, ncols))
+            self._dropped_splats = (dropped if self._dropped_splats is None
+                                    else self._dropped_splats + dropped)
+            if first_block:
+                self._image = im
+                first_block = False
+            else:
+                self._image = self._image + im
+        return first_block
 
     def _feed_cull_mask(self):
         """(n_groups, pad_group) f32 cull mask, rebuilt only when the cell
@@ -232,7 +402,9 @@ class SPHRenderer:
 
     @property
     def last_dropped_splats(self) -> int:
-        """Splats dropped by the bounded spill tiers in the last piece."""
+        """Splats dropped by the bounded spill tiers: in the last piece of
+        an EXPORT frame (as in the reference), summed over the launches of
+        an interactive frame."""
         d = self._dropped_splats
         return 0 if d is None else int(d.item())
 

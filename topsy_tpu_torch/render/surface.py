@@ -8,8 +8,8 @@ the columns progression (as the reference does even for EXPORT), plans the
 exact dense giant layer, and renders the whole column range through
 ``zsplat_atlas`` in group-axis chunks of at most
 ``config.SPLAT_COLUMNS_GROUP_CAP`` groups, combined by max-compositing.  The
-photometric mass scale is unity.  CHANGE / REFINE frames (interactive column
-LOD) are ROADMAP item M9.
+photometric mass scale is unity.  CHANGE / REFINE frames (the interactive
+surface) are ROADMAP item M11.
 """
 
 from __future__ import annotations
@@ -17,10 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import config
 from ..drawreason import DrawReason
 from ..ops import splat, splat_atlas, splat_giant, zsplat, zsplat_atlas
-from ..ops.splat_accum import SUBGROUPS
 from .sph import SPHRenderer
 from .store import ParticleStore
 
@@ -54,7 +52,7 @@ def _render_block_columns_surface(pos_smooth, values, buckets, cell_ids,
         g_eff = 512
     else:
         group = width
-        subgroups = min(64, SUBGROUPS * (pad_group // width))
+        subgroups = splat_atlas.column_pad_multiple(pad_group, width)
         g_eff = width
     ps_s = slice_cols(pos_smooth)
     vals_s = slice_cols(values)
@@ -66,7 +64,8 @@ def _render_block_columns_surface(pos_smooth, values, buckets, cell_ids,
             density_cut=density_cut,
             extra_mask=None if mask is None else mask[sl],
             giants=giant_bucket, group=group, subgroups=subgroups,
-            spill_group_cap=4 * config.SPLAT_SPILL_GROUP_CAP, t3_cap=4096)
+            spill_group_cap=splat_atlas.COLUMN_SPILL_GROUP_CAP,
+            t3_cap=splat_atlas.COLUMN_T3_CAP)
 
     im, dropped = None, 0
     for sl in column_chunks(ps_s.shape[0], g_eff):
@@ -77,12 +76,10 @@ def _render_block_columns_surface(pos_smooth, values, buckets, cell_ids,
 
 
 def column_chunks(n_rows: int, g_eff: int) -> list[slice]:
-    """The row slices of the group-axis chunks of a column launch."""
-    chunk_rows = config.SPLAT_COLUMNS_GROUP_CAP * g_eff
-    if n_rows <= chunk_rows:
-        return [slice(None)]
-    return [slice(r0, min(r0 + chunk_rows, n_rows))
-            for r0 in range(0, n_rows, chunk_rows)]
+    """The row slices of the group-axis chunks of a column launch
+    (``splat_atlas.column_pieces`` over groups of ``g_eff`` rows)."""
+    return [slice(g0 * g_eff, min((g0 + n) * g_eff, n_rows))
+            for g0, n in splat_atlas.column_pieces(-(-n_rows // g_eff))]
 
 
 def _render_giant_layer_surface(pos_smooth, values, buckets, cell_ids,
@@ -154,8 +151,8 @@ class SurfaceSPHRenderer(SPHRenderer):
             return
         if draw_reason != DrawReason.EXPORT:
             raise NotImplementedError(
-                f"{draw_reason}: the PyTorch port renders EXPORT frames only; "
-                "the interactive LOD path is ROADMAP item M9")
+                f"{draw_reason}: the PyTorch port renders surface EXPORT "
+                "frames only; the interactive surface is ROADMAP item M11")
         # the reference activates the columns progression for EXPORT too
         if not self._maybe_activate_columns(DrawReason.CHANGE):
             raise NotImplementedError("a presort layout without column "

@@ -4,6 +4,8 @@ Counterpart of ``topsy_tpu/util.py``.  On a CUDA device the barrier is
 ``torch.cuda.synchronize`` and block timing uses CUDA events, so the
 accumulated figure is device time; on the CPU the barrier is a no-op and
 blocks are timed on the host clock (PyTorch's CPU ops run synchronously).
+``FrameClock`` times a barrier-free interactive frame from its first launch
+to the end of its presentation readback.
 """
 
 from __future__ import annotations
@@ -86,6 +88,16 @@ class TimeDeviceOperation:
         if len(self._recent) > self.n_frames_smooth:
             self._recent.pop(0)
 
+    def record_external(self, duration: float):
+        """Record a frame duration measured outside this timer (a
+        barrier-free interactive frame, timed by its ``FrameClock`` once the
+        presentation readback has landed); feeds the same running mean as
+        the frames this timer closes itself."""
+        self.last_duration = max(0.0, duration)
+        self._recent.append(self.last_duration)
+        if len(self._recent) > self.n_frames_smooth:
+            self._recent.pop(0)
+
     def total_time_in_frame(self) -> float:
         """Device time charged so far in this frame (blocks not yet
         synchronised are not included)."""
@@ -96,3 +108,40 @@ class TimeDeviceOperation:
         if not self._recent:
             return 0.0
         return float(np.mean(self._recent))
+
+
+class FrameClock:
+    """The span of one barrier-free interactive frame: ``start()`` before
+    the frame's first launch, ``stop()`` after the presentation's readback
+    has been enqueued.  On a CUDA device both are CUDA events on the
+    current stream and ``stop()`` always waits for its event, so the
+    readback's host buffer is ready, and ``seconds()`` is the device's
+    span; on the CPU both read ``time.perf_counter``."""
+
+    def __init__(self, device="cpu"):
+        self._cuda = torch.device(device).type == "cuda"
+        self._start = self._end = None
+
+    def start(self):
+        if self._cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._start = time.perf_counter()
+        self._end = None
+
+    def stop(self):
+        if self._cuda:
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._end.record()
+            self._end.synchronize()
+        else:
+            self._end = time.perf_counter()
+
+    def seconds(self) -> float | None:
+        """The last started frame's span, or None before ``stop()``."""
+        if self._start is None or self._end is None:
+            return None
+        if self._cuda:
+            return self._start.elapsed_time(self._end) / 1e3
+        return self._end - self._start

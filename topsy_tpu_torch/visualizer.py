@@ -1,11 +1,13 @@
 """The Visualizer: loader, store, renderer, colormap, overlays and canvas.
 
 Counterpart of ``VisualizerBase`` in ``topsy_tpu/visualizer.py`` for the
-univariate and surface EXPORT paths: ``get_sph_image``,
-``get_sph_presentation_image``, ``get_presentation_image`` and
-``draw(DrawReason.EXPORT, target=...)``, with the ``render_mode`` /
-``scale`` / ``rotation_matrix`` / ``position_offset`` / ``quantity_name``
-properties.  The device is explicit: ``device="cuda"`` (the default) needs
+univariate mode (EXPORT and interactive frames) and the surface mode
+(EXPORT frames): ``get_sph_image``, ``get_sph_presentation_image``,
+``get_presentation_image``, ``draw(reason, target=...)`` with its refine
+chain (a CHANGE or REFINE draw that leaves the progression incomplete
+requests a REFINE draw), ``rotate``, ``prevent_sph_rendering`` and the
+``render_mode`` / ``scale`` / ``rotation_matrix`` / ``position_offset`` /
+``quantity_name`` properties.  The device is explicit: ``device="cuda"`` (the default) needs
 a GPU and raises without one; tests pass ``"cpu"``.  The canvas and
 overlays are the port's copies of the reference's classes; the colorbar
 (which needs matplotlib) is built on first use.  ``OffscreenCanvas`` and
@@ -15,11 +17,13 @@ overlays are the port's copies of the reference's classes; the colorbar
 from __future__ import annotations
 
 import logging
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 from . import config
+from .camera import x_rotation_matrix, y_rotation_matrix
 from .canvas import OffscreenCanvas
 from .color import ColormapHolder
 from .color.maps import fit_to_window
@@ -63,6 +67,7 @@ class VisualizerBase:
         self._colorbar = None
         self._colorbar_wanted = False
         self._sph = None
+        self._prevent_sph_rendering = False
         self._colormap: ColormapHolder | None = None
         self.show_colorbar = True
         self.show_scalebar = True
@@ -229,6 +234,11 @@ class VisualizerBase:
 
     # -- view manipulation ---------------------------------------------------------
 
+    def rotate(self, x_angle, y_angle):
+        self.rotation_matrix = (x_rotation_matrix(x_angle)
+                                @ y_rotation_matrix(y_angle)
+                                @ self.rotation_matrix)
+
     def reset_view(self, rotation_matrix=None, position_offset=None,
                    scale=None):
         if rotation_matrix is None:
@@ -259,25 +269,36 @@ class VisualizerBase:
     def draw(self, reason, target=None):
         """Render (if needed) and compose the presentation frame (RGBA
         uint8), stored as ``self.last_frame`` and handed to the canvas.
-        ``target``: optional (width, height), defaults to the canvas size."""
+        ``target``: optional (width, height), defaults to the canvas size.
+        An interactive draw that leaves the progression incomplete requests
+        a REFINE draw."""
         if self._colormap is None:
             return None
         if target is None:
             width, height = self.canvas.width_physical, self.canvas.height_physical
         else:
             width, height = target
-        self.render_sph(reason)
+        if not self._prevent_sph_rendering:
+            self.render_sph(reason)
         frame = self._compose_presentation(width, height)
         self.last_frame = frame
         if hasattr(self.canvas, "present_frame"):
             self.canvas.present_frame(frame)
+        if (reason != DrawReason.EXPORT and not self._prevent_sph_rendering
+                and self._sph.needs_refine()):
+            self.invalidate(DrawReason.REFINE)
         return frame
 
     def _compose_presentation(self, width, height) -> np.ndarray:
         rgba = self._colormap.to_rgba(self._sph.get_output_image(),
                                       self._sph.last_render_mass_scale)
-        img = fit_to_window(rgba, width, height).cpu().numpy().astype(
-            np.float32)
+        host = fit_to_window(rgba, width, height).to("cpu", non_blocking=True)
+        # the readback is an interactive frame's one barrier: stop the frame
+        # clock behind it (this waits for the copy) and report the frame's
+        # span to the renderer's deferred LOD and fps timing
+        self._sph.frame_clock.stop()
+        self._sph.notify_presentation_barrier()
+        img = host.numpy().astype(np.float32)
         img[..., 3] = 1.0
         if self.show_colorbar and self._colorbar_overlay() is not None:
             self._colorbar.composite(img)
@@ -306,6 +327,15 @@ class VisualizerBase:
     def get_presentation_image(self, resolution=(640, 480)) -> np.ndarray:
         """Full presentation frame with overlays at the given size."""
         return self.draw(DrawReason.EXPORT, target=resolution)
+
+    @contextmanager
+    def prevent_sph_rendering(self):
+        """Temporarily block SPH re-rendering for quick screen updates."""
+        self._prevent_sph_rendering = True
+        try:
+            yield
+        finally:
+            self._prevent_sph_rendering = False
 
 
 class Visualizer(VisualizerBase):
