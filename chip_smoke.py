@@ -22,12 +22,23 @@ warm-ups, each a CHANGE draw and the REFINE draws that complete it, timed
 by the frame clock from the first launch to the end of the presentation
 readback, the completed image against the EXPORT image of its view, and a
 zoomed-out view where the giant layer runs, against the scatter truth and its
-EXPORT image.  Then it switches the same Visualizer to the surface mode and, at
-the default density cut and at the lowest one (every particle, much of the
-image covered), holds K3 bit-identical to its plain version on every K3
-call of one surface EXPORT frame (plus forced stragglers), drives the
-surface EXPORT path and checks its (value, depth) image against the port's
-scatter-max ground truth.  It prints:
+EXPORT image.  On the same store it drives the other additive modes
+(phases M1-M4): RGB and RGB-HDR (K1 with three value rows and K2 at C = 3
+held on every call of the first piece, EXPORT frames, each band against
+the scatter truth, both presentations), bivariate (EXPORT frames, the 2-D
+LUT presentation), the depth pick (its CHANGE launch with K1's depth
+channel and K2 at C = 3 held on every call, the picked depth against the
+scatter truth) and periodic tiling (EXPORT frames, the lattice composite
+against a float64 one).  Then it switches the same Visualizer to the
+surface mode and, at the default density cut and at the lowest one (every
+particle, much of the image covered), holds K3 bit-identical to its plain
+version on every K3 call of one surface EXPORT frame (plus forced
+stragglers), drives the surface EXPORT path and checks its (value, depth)
+image against the port's scatter-max ground truth; and drives the
+interactive surface (phase SI: K3 on column slices one and three quanta
+wide and on the CHANGE frame's own launch, five views timed by the frame
+clock, the completed image against EXPORT, and a zoomed-out view with the
+surface giant layer against the scatter truth).  It prints:
 
 * the card's name and power limit (nvidia-smi);
 * ptxas' registers, stack and spills for every K2 and K3 kernel
@@ -43,15 +54,16 @@ scatter-max ground truth.  It prints:
   starting atlas;
 * per interactive frame its time, column ranges, dropped splats and mass
   scale;
-* one ``{"kernels": [...]}`` JSON line: per kernel its launches during its
-  path's EXPORT frames and interactive views, its largest difference from
-  the plain version, the
+* one ``{"kernels": [...]}`` JSON line: per kernel its launches on each
+  path that runs it (each path's counts zeroed just before it and read
+  just after), its largest difference from the plain version, the
   kernel's and the plain version's time, the bound (the least time the
   card could take for the same work: bytes over 3.35 TB/s or operations
   over the peak rate of their type, whichever is larger) and the library
   call's time (null: no single PyTorch call computes any of the three);
-  for K1 and K2 also every interactive call of phase I1, its time, its
-  plain version's and its bound;
+  for K1 and K2 also every interactive call of phase I1 and every timed
+  call of phase M (C = 3, the depth channel), its time, its plain
+  version's and its bound; for K3 every timed call of phases S2 and SI;
 * last, ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure, so the script exits nonzero and prints no
@@ -98,6 +110,8 @@ K2_OPS_PER_HAT_LINE = 3
 # the surface frames: the default density cut (the 50th percentile) and
 # the lowest one, which keeps every particle and covers much of the image
 SURFACE_CUTS = (("cut50", 50.0), ("cut0", 0.0))
+# the periodic TestDataLoader's box (loaders.TestDataLoader(periodic=True))
+PERIODICITY = 100.0
 
 
 def fail(msg: str):
@@ -176,18 +190,21 @@ def build_scene(dev):
     return vis
 
 
-def feed_args(vis, piece):
-    """K1's (args, kwargs) for one piece, exactly as the renderer feeds
-    it."""
+def feed_args(vis, piece, sph=None):
+    """K1's (args, kwargs) for one piece, exactly as the renderer ``sph``
+    (the Visualizer's by default) feeds it: its buffer, its depth
+    channel."""
     import numpy as np
     from topsy_tpu_torch.ops import splat_atlas
-    sph, store = vis._sph, vis.store
+    sph = vis._sph if sph is None else sph
+    store = vis.store
     return splat_atlas.feed_call(
         store.presorted_fields(),
         store.presorted_values_cm_for(sph._buffer_name),
         sph._matrix().astype(np.float32), RESOLUTION, np.float32(sph.scale),
         store.presorted_group_buckets, mask=sph._feed_cull_mask(),
-        piece=piece, bucket_thresh=sph._giant_bucket)
+        depth_channel=sph._depth_channel, piece=piece,
+        bucket_thresh=sph._giant_bucket)
 
 
 def k2_calls(feed_out, G, atlas_rows, atlas_cols):
@@ -198,7 +215,8 @@ def k2_calls(feed_out, G, atlas_rows, atlas_cols):
     spilled particle a straggler, so the one-particle shape also runs on
     real anchors."""
     from topsy_tpu_torch.ops import splat_atlas
-    common = dict(C=2, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols)
+    common = dict(C=len(feed_out[3]), G=G, atlas_rows=atlas_rows,
+                  atlas_cols=atlas_cols)
     main_kw, tier2_kw, tier3_kw, dropped = splat_atlas.deposit_calls(
         feed_out, **common)
     _, _, stragglers_kw, _ = splat_atlas.deposit_calls(
@@ -288,14 +306,17 @@ def k2_work(kw):
 
 def k1_bound(fkw, G):
     """(bound_ms, bound_by) of one K1 call over ``fkw['piece_groups']``
-    groups of G slots: per slot the four fields and two values read and
-    the three anchors and two channels of each of cfit and cspill written,
-    per group its 8-float table row read and 5 integers written, all
-    4 bytes; ``K1_OPS_PER_SLOT`` float32 operations per slot."""
+    groups of G slots: per slot the four fields and the C_in values read
+    and the three anchors and the C channels (C_in, plus the depth
+    channel) of each of cfit and cspill written, per group its 8-float
+    table row read and 5 integers written, all 4 bytes;
+    ``K1_OPS_PER_SLOT`` float32 operations per slot."""
     groups = fkw["piece_groups"]
     slots = groups * G
-    return bound(slots * (4 + 2) * 4 + groups * 8 * 4
-                 + slots * (3 + 2 * 2) * 4 + groups * 5 * 4,
+    c_in = fkw["C_in"]
+    c = c_in + int(fkw["depth_channel"])
+    return bound(slots * (4 + c_in) * 4 + groups * 8 * 4
+                 + slots * (3 + 2 * c) * 4 + groups * 5 * 4,
                  slots * K1_OPS_PER_SLOT, F32_OPS_PER_S)
 
 
@@ -752,8 +773,7 @@ def phase_interactive(vis):
     summary.update(feed_t=feed_t, accum_t=accum_t)
 
     # ---- I2: interactive views, each a CHANGE draw then REFINE draws ------
-    splat_feed.launches = 0
-    splat_accum.launches = 0
+    reset_counts()
     change_ms, refine_ms, n_frames, all_frames = [], [], [], 0
     for v in range(2 + FRAMES):                  # two warm-up views
         vis.rotate(0.0, 0.05)
@@ -768,10 +788,8 @@ def phase_interactive(vis):
         log(f"phase I2 view {v}{' (warm-up)' if v < 2 else ''}: frames "
             "(ms by the frame clock, column ranges, dropped, mass scale) "
             f"{[(round(f[0], 3),) + f[1:] for f in frames]}")
-    launches = {"splat_feed": splat_feed.launches,
-                "accumulate_groups": splat_accum.launches}
-    check(launches["splat_feed"] > 0 and launches["accumulate_groups"] > 0,
-          f"a kernel was not launched on the interactive path: {launches}")
+    launches = read_counts("interactive", ("splat_feed",
+                                           "accumulate_groups"))
     # the frame's two parts alone (CUDA events): the CHANGE render and the
     # presentation (colormap, fit to the canvas, readback)
     render_ms = timed_ms(lambda: sph.render(DrawReason.CHANGE), 5)
@@ -836,6 +854,313 @@ def phase_interactive(vis):
     sph.render(DrawReason.EXPORT)
     log(f"phase I: {time.perf_counter() - t_all:.1f} s")
     return launches, feed_err, accum_err, summary
+
+def export_frame_ms(sph):
+    """(CUDA-event ms, host wall ms) of FRAMES EXPORT frames of the renderer
+    ``sph``, each alone, after 2 warm-up frames."""
+    import torch
+    from topsy_tpu_torch.visualizer import DrawReason
+    for _ in range(2):
+        sph.invalidate()
+        sph.render(DrawReason.EXPORT)
+    frame_ms, wall_ms = [], []
+    for _ in range(FRAMES):
+        sph.invalidate()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        sph.render(DrawReason.EXPORT)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        frame_ms.append(start.elapsed_time(end))
+    return frame_ms, wall_ms
+
+
+def reset_counts():
+    from topsy_tpu_torch.ops import splat_accum, splat_feed, zsplat_accum
+    splat_feed.launches = 0
+    splat_accum.launches = 0
+    zsplat_accum.launches = 0
+    zsplat_accum.plan_launches = 0
+
+
+def read_counts(tag, need):
+    """The kernels' launches since ``reset_counts``; fails unless every
+    kernel of ``need`` was launched."""
+    from topsy_tpu_torch.ops import splat_accum, splat_feed, zsplat_accum
+    got = {"splat_feed": splat_feed.launches,
+           "accumulate_groups": splat_accum.launches,
+           "accumulate_max_groups": zsplat_accum.launches,
+           "zdeposit_plan": zsplat_accum.plan_launches}
+    check(all(got[k] > 0 for k in need),
+          f"a kernel of the {tag} path was not launched: {got}")
+    return got
+
+
+def held_calls(tag, vis, sph, pieces, timed, times, column=None):
+    """K1 and K2 against their plain versions on every call of the given
+    EXPORT pieces of the renderer ``sph`` (its buffer and depth channel)
+    or, with ``column=(col0, width)``, of every piece of that column
+    launch; the first piece's calls timed beside their plain versions and
+    bounds into ``times`` ({call: (ms, plain ms, bound ms)}).  Returns (K1's
+    and K2's largest differences)."""
+    import numpy as np
+    from topsy_tpu_torch.ops import splat, splat_accum, splat_atlas, \
+        splat_feed
+    from topsy_tpu_torch.render.sph import column_launches
+    store = vis.store
+    _, atlas_rows, atlas_cols = splat_atlas.atlas_layout(
+        splat.default_pyramid(RESOLUTION))
+    G = store.presorted_layout.pad_group
+    feed_err = accum_err = 0.0
+    kw_col = {}
+    if column is not None:
+        fields, vals, gb, msk, pieces, kw_col = column_launches(
+            store.presorted_fields(),
+            store.presorted_values_cm_for(sph._buffer_name),
+            store.presorted_group_buckets, sph._feed_cull_mask(), *column)
+        G = column[1]
+    for i, piece in enumerate(pieces):
+        label = f"{tag} piece {piece}"
+        if column is None:
+            fargs, fkw = feed_args(vis, piece, sph)
+        else:
+            fargs, fkw = splat_atlas.feed_call(
+                fields, vals, sph._matrix().astype(np.float32), RESOLUTION,
+                np.float32(sph.scale), gb, mask=msk,
+                depth_channel=sph._depth_channel, piece=piece,
+                bucket_thresh=sph._giant_bucket)
+        out_k = splat_feed.splat_feed_triton(*fargs, **fkw)
+        feed_err = max(feed_err, compare_feed(
+            label, out_k, splat_feed.splat_feed_plain(*fargs, **fkw)))
+        main_kw, t2_kw, t3_kw, dropped = splat_atlas.deposit_calls(
+            out_k, C=len(out_k[3]), G=G, atlas_rows=atlas_rows,
+            atlas_cols=atlas_cols, **kw_col)
+        msg = (f"phase {label}: K1 (C_in {fkw['C_in']}, depth "
+               f"{int(fkw['depth_channel'])}) bit-exact on integers")
+        if i == 0 and timed:
+            t = times[f"{tag}_K1"] = (
+                timed_ms(lambda: splat_feed.splat_feed_triton(*fargs, **fkw),
+                         5),
+                timed_ms(lambda: splat_feed.splat_feed_plain(*fargs, **fkw),
+                         2),
+                k1_bound(fkw, G)[0])
+            msg += (f" {t[0]:.3f} ms (plain {t[1]:.3f} ms, bound {t[2]:.4f} "
+                    "ms)")
+        for shape, dkw in (("main", main_kw), ("tier2", t2_kw),
+                           ("tier3", t3_kw)):
+            err, ref_max, active = compare_k2(f"{label} {shape}", dkw)
+            accum_err = max(accum_err, err)
+            msg += (f"; K2 {shape} (C {dkw['C']}, groups "
+                    f"{dkw['flags'].shape[0]} of {dkw['group']}, active "
+                    f"{active}) within {err:.3e} of max|atlas| {ref_max:.4e}")
+            if i == 0 and timed:
+                b_ms, _, b_detail = k2_bound(dkw)
+                t = times[f"{tag}_K2_{shape}"] = (
+                    timed_ms(lambda: splat_accum.accumulate_groups_cuda(
+                        **dkw), 5),
+                    timed_ms(lambda: splat_accum.accumulate_groups_plain(
+                        **dkw), 2), b_ms)
+                msg += (f" {t[0]:.3f} ms (plain {t[1]:.3f} ms, bound "
+                        f"{b_detail})")
+        log(msg + f"; dropped {int(dropped.item())}")
+        del out_k, main_kw, t2_kw, t3_kw
+    return feed_err, accum_err
+
+
+def against_truth(tag, raw, truth, channels):
+    """Per channel: the image's sum within rel 1e-2 of the scatter truth's
+    and correlation > 0.999."""
+    import numpy as np
+    out = []
+    for c in channels:
+        a = raw[..., c].astype(np.float64)
+        b = truth[..., c].astype(np.float64)
+        rel = abs(a.sum() / b.sum() - 1.0)
+        corr = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+        out.append(f"channel {c}: sum rel diff {rel:.3e}, corr {corr:.6f}")
+        check(rel <= 1e-2, f"{tag} channel {c}: sum rel diff {rel} > 1e-2")
+        check(corr > 0.999, f"{tag} channel {c}: correlation {corr} <= 0.999")
+    log(f"phase {tag} against splat_scatter: " + "; ".join(out))
+
+
+def phase_modes(vis):
+    """Phases M1-M4, the other additive modes on the EXPORT scene's
+    Visualizer (its store and view): RGB and RGB-HDR, bivariate, the depth
+    pick and periodic tiling.  Returns (launches per path, K1's and K2's
+    largest differences, call times {call: (ms, plain ms, bound ms)}, a
+    summary dict)."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch.ops import splat
+    from topsy_tpu_torch.ops.composite import lattice_composite
+    from topsy_tpu_torch.render import sph as sph_module
+    from topsy_tpu_torch.render.periodic import PeriodicSPHRenderer
+    t_all = time.perf_counter()
+    store = vis.store
+    dev = store.device
+    vis.show_colorbar = vis.show_scalebar = vis.show_status = False
+    ps = torch.as_tensor(vis.data_loader.get_pos_smooth(), device=dev)
+    launches, times, summary = {}, {}, {}
+    feed_err = accum_err = 0.0
+
+    # ---- M1: RGB and RGB-HDR --------------------------------------------
+    vis.render_mode = "rgb"               # renders (autorange) one frame
+    sph = vis._sph
+    check(isinstance(sph, sph_module.RGBSPHRenderer), "not the RGB renderer")
+    fe, ae = held_calls("M1 rgb", vis, sph, sph.pieces()[:1], True, times)
+    feed_err, accum_err = max(feed_err, fe), max(accum_err, ae)
+    reset_counts()
+    frames = export_frame_ms(sph)[0]
+    launches["rgb_export"] = read_counts("RGB EXPORT", ("splat_feed",
+                                                        "accumulate_groups"))
+    summary["rgb_frame_ms"] = frames
+    raw = sph.get_image()
+    check(raw.shape == (RESOLUTION, RESOLUTION, 3) and np.isfinite(raw).all(),
+          f"RGB image {raw.shape} not finite")
+    truth = splat.splat_scatter(
+        ps, torch.as_tensor(store.host_values_for("rgb"), device=dev),
+        sph._matrix().astype(np.float32), RESOLUTION, np.float32(sph.scale))
+    against_truth("M1 rgb", raw, truth.cpu().numpy(), range(3))
+    del truth
+    out = sph.get_output_image()
+    ms = sph.last_render_mass_scale
+    present = {"rgb": timed_ms(lambda: vis.colormap.to_rgba(out, ms), 5)}
+    pres = vis.get_sph_presentation_image()
+    check(pres.shape == (RESOLUTION, RESOLUTION, 4) and pres.dtype == np.uint8
+          and pres[..., :3].std() > 0, f"RGB presentation {pres.shape} "
+          f"{pres.dtype} or constant")
+    vis.render_mode = "rgb-hdr"
+    out = vis._sph.get_output_image()
+    present["rgb-hdr"] = timed_ms(lambda: vis.colormap.to_rgba(out, ms), 5)
+    pres = vis.get_sph_presentation_image()
+    check(pres.shape == (RESOLUTION, RESOLUTION, 4)
+          and pres.dtype == np.float16
+          and pres[..., :3].astype(np.float32).std() > 0,
+          f"RGB-HDR presentation {pres.shape} {pres.dtype} or constant")
+    log(f"phase M1: RGB EXPORT {FRAMES} frames, median "
+        f"{statistics.median(frames):.3f} ms/frame (frames "
+        f"{[round(t, 3) for t in frames]}), dropped (last piece) "
+        f"{sph.last_dropped_splats}; launches {launches['rgb_export']}; "
+        f"presentation (colormap alone) rgb {present['rgb']:.3f} ms, rgb-hdr "
+        f"{present['rgb-hdr']:.3f} ms; HDR maximum "
+        f"{float(pres[..., :3].astype(np.float32).max()):.4f}")
+
+    # ---- M2: bivariate ------------------------------------------------------
+    vis.render_mode = "bivariate"
+    sph = vis._sph
+    reset_counts()
+    frames = export_frame_ms(sph)[0]
+    launches["bivariate_export"] = read_counts(
+        "bivariate EXPORT", ("splat_feed", "accumulate_groups"))
+    summary["bivariate_frame_ms"] = frames
+    out = sph.get_output_image()
+    present["bivariate"] = timed_ms(
+        lambda: vis.colormap.to_rgba(out, sph.last_render_mass_scale), 5)
+    pres = vis.get_sph_presentation_image()
+    check(pres.shape == (RESOLUTION, RESOLUTION, 4) and pres.dtype == np.uint8
+          and pres[..., :3].std() > 0, "bivariate presentation constant")
+    log(f"phase M2: bivariate EXPORT {FRAMES} frames, median "
+        f"{statistics.median(frames):.3f} ms/frame (frames "
+        f"{[round(t, 3) for t in frames]}); launches "
+        f"{launches['bivariate_export']}; presentation (2-D LUT lookup) "
+        f"{present['bivariate']:.3f} ms")
+    summary["present_ms"] = present
+
+    # ---- M3: the depth pick ------------------------------------------------
+    vis.render_mode = "univariate"
+    sph = vis._sph
+    reset_counts()
+    depth = vis.get_depth_image()           # the pick's own CHANGE frame
+    launches["depth_pick"] = read_counts("depth pick", ("splat_feed",
+                                                        "accumulate_groups"))
+    dr = sph._get_depth_renderer()
+    check(dr.last_column_ranges == [(0, store.presorted_layout.pad_group)],
+          f"the pick's frame launched {dr.last_column_ranges}")
+    pick_ms = timed_ms(lambda: vis.get_depth_image(), 3)
+    G = store.presorted_layout.pad_group
+    fe, ae = held_calls("M3 depth", vis, dr, None, True, times,
+                        column=(0, G))
+    feed_err, accum_err = max(feed_err, fe), max(accum_err, ae)
+    raw = dr.get_image()
+    truth = splat.splat_scatter(
+        ps, torch.as_tensor(store.host_values_for("mass_and_quantity"),
+                            device=dev),
+        dr._matrix().astype(np.float32), RESOLUTION, np.float32(dr.scale),
+        depth_channel=True).cpu().numpy()
+    against_truth("M3 depth renderer", raw, truth, (0, 2))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        d_truth = (truth[..., 2] / truth[..., 0] - 0.5) * dr.scale * 2.0
+    dense = truth[..., 0] > 1e-3 * truth[..., 0].max()
+    err = np.abs(depth - d_truth)[dense] / (2.0 * dr.scale)
+    nan_agree = float((np.isnan(depth) == np.isnan(d_truth)).mean())
+    log(f"phase M3: depth pick {pick_ms:.3f} ms (CUDA events, readback and "
+        f"host division included); the pick's launch dropped "
+        f"{dr.last_dropped_splats} splats; launches {launches['depth_pick']}; "
+        f"against the scatter truth on the {dense.mean():.4f} of pixels "
+        f"holding 1e-3 of the densest pixel's mass: |d depth| / view depth "
+        f"median {np.median(err):.3e}, p99 {np.percentile(err, 99):.3e}, "
+        f"max {err.max():.3e}; NaN pattern agrees on {nan_agree:.6f}")
+    # the pick's launch drops splats that the truth keeps (the mass
+    # channel's sum differs by their share), which moves the weighted
+    # depth of the pixels they cover
+    check(np.median(err) <= 1e-4 and np.percentile(err, 99) <= 5e-3
+          and err.max() <= 1e-2, "the depth pick differs from the scatter "
+          "truth")
+    summary["pick_ms"] = pick_ms
+    del truth, raw
+
+    # ---- M4: periodic tiling over the scene's store -----------------------
+    psph = PeriodicSPHRenderer(store, vis.data_loader.get_render_progression(),
+                               RESOLUTION, PERIODICITY)
+    psph.rotation_matrix = sph.rotation_matrix
+    psph.position_offset = sph.position_offset
+    psph.scale = sph.scale
+    reset_counts()
+    frames = export_frame_ms(psph)[0]
+    launches["periodic_export"] = read_counts(
+        "periodic EXPORT", ("splat_feed", "accumulate_groups"))
+    summary["periodic_frame_ms"] = frames
+    offsets, weights = psph.lattice_pixels()
+    panel = sph_module.SPHRenderer.get_output_image(psph)
+    lattice_ms = timed_ms(lambda: lattice_composite(panel, offsets, weights),
+                          5)
+    tiled = psph.get_output_image().double()
+    expect = torch.zeros_like(tiled)
+    p64 = panel.double()
+    H, W = p64.shape[:2]
+    rows = torch.arange(H, device=dev)[:, None]
+    cols = torch.arange(W, device=dev)[None, :]
+    for (dy, dx), w in zip(offsets.astype(np.float64), weights):
+        iy, ix = int(np.floor(dy)), int(np.floor(dx))
+        fy, fx = dy - iy, dx - ix
+        for sy, sx, f in ((iy, ix, (1 - fy) * (1 - fx)),
+                          (iy, ix + 1, (1 - fy) * fx),
+                          (iy + 1, ix, fy * (1 - fx)), (iy + 1, ix + 1, fy * fx)):
+            valid = (((rows >= sy) if sy >= 0 else (rows < H + sy))
+                     & ((cols >= sx) if sx >= 0 else (cols < W + sx)))
+            rolled = torch.roll(p64, (sy, sx), dims=(0, 1))
+            expect += rolled * valid[..., None] * (f * float(w))
+    diff = float((tiled - expect).abs().max() / expect.abs().max())
+    bare, full = float(p64[..., 0].sum()), float(tiled[..., 0].sum())
+    log(f"phase M4: periodic tiling over the scene's store (periodicity "
+        f"{PERIODICITY}, the periodic TestDataLoader's box): {len(weights)} "
+        f"lattice instances, weights sum {float(weights.sum()):.4f}; EXPORT "
+        f"{FRAMES} frames, median {statistics.median(frames):.3f} ms/frame "
+        f"(frames {[round(t, 3) for t in frames]}); lattice_composite alone "
+        f"{lattice_ms:.3f} ms; tiled image against a float64 roll-and-mask "
+        f"composite: max diff {diff:.3e} of the max; density sum tiled / "
+        f"bare panel {full / bare:.4f}; launches {launches['periodic_export']}")
+    check(np.isfinite(tiled.cpu().numpy()).all(), "periodic image not finite")
+    check(diff <= 1e-5, f"the lattice composite differs by {diff}")
+    check(full >= bare, "the tiled image holds less than the bare panel")
+    summary["lattice_ms"] = lattice_ms
+    del ps, tiled, expect, p64, psph
+    log(f"phase M: {time.perf_counter() - t_all:.1f} s")
+    return launches, feed_err, accum_err, times, summary
 
 
 def main() -> int:
@@ -971,31 +1296,11 @@ def main() -> int:
         del out_k
 
     # ---- phase 6: the EXPORT path ------------------------------------------
-    splat_feed.launches = 0
-    splat_accum.launches = 0
-    zsplat_accum.launches = 0
-    for _ in range(2):                      # warm-up frames
-        sph.invalidate()
-        sph.render(DrawReason.EXPORT)
-    torch.cuda.synchronize()
-    frame_ms, wall_ms = [], []
-    for _ in range(FRAMES):
-        sph.invalidate()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        sph.render(DrawReason.EXPORT)
-        end.record()
-        torch.cuda.synchronize()
-        wall_ms.append((time.perf_counter() - t0) * 1e3)
-        frame_ms.append(start.elapsed_time(end))
+    reset_counts()
+    frame_ms, wall_ms = export_frame_ms(sph)
     image = vis.get_sph_image()
     pres = vis.get_sph_presentation_image()
-    launches = {"splat_feed": splat_feed.launches,
-                "accumulate_groups": splat_accum.launches,
-                "accumulate_max_groups": zsplat_accum.launches}
+    launches = read_counts("EXPORT", ("splat_feed", "accumulate_groups"))
     med = statistics.median(frame_ms)
     log(f"phase EXPORT: {FRAMES} frames, median {med:.3f} ms/frame "
         f"(CUDA events; host wall median {statistics.median(wall_ms):.3f} "
@@ -1004,8 +1309,6 @@ def main() -> int:
         f"{[round(t, 3) for t in frame_ms]}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; launches during the EXPORT frames {launches}")
-    check(launches["splat_feed"] > 0 and launches["accumulate_groups"] > 0,
-          f"a kernel was not launched on the EXPORT path: {launches}")
 
     # ---- phase 7: the output is right --------------------------------------
     raw = sph.get_image()
@@ -1036,6 +1339,11 @@ def main() -> int:
     feed_err = max(feed_err, i_feed_err)
     accum_err = max(accum_err, i_accum_err)
 
+    # ---- phases M1-M4: the other additive modes on the same Visualizer -----
+    mlaunches, m_feed_err, m_accum_err, mtimes, msummary = phase_modes(vis)
+    feed_err = max(feed_err, m_feed_err)
+    accum_err = max(accum_err, m_accum_err)
+
     # ---- phase S1: the surface mode on the same Visualizer -----------------
     t0 = time.perf_counter()
     vis.render_mode = "surface"           # renders (autorange) one frame
@@ -1059,8 +1367,6 @@ def main() -> int:
     chunk_groups = [((c.start or 0) // G,
                      ((c.stop or sps.shape[0]) - (c.start or 0)) // G)
                     for c in chunks]
-    smatrix = ssph._matrix().astype(np.float32)
-    sscale = np.float32(ssph.scale)
     pyr = splat.default_pyramid(RESOLUTION)
     log(f"phase S1: {time.perf_counter() - t0:.2f} s; EXPORT blocks "
         f"{blocks}; column launch chunks {chunk_groups} (first group, "
@@ -1126,6 +1432,61 @@ def main() -> int:
             f"pixels per group)")
         return k
 
+    def surface_truth(tag, sraw, cut, gb):
+        """The surface renderer's (value, depth) image against the
+        scatter-max truth over the presorted arrays at its view, cut and
+        giant plan (its giant layer composited): coverage flips <= 1e-4 of
+        the covered pixels, depth within rtol 1e-5 / atol 1e-4, winner
+        values equal on >= 99.9%.  Returns the covered share."""
+        t0 = time.perf_counter()
+        check(sraw.shape == (RESOLUTION, RESOLUTION, 2),
+              f"surface image shape {sraw.shape}")
+        check(np.isfinite(sraw).all(), "surface image not finite")
+        smatrix = ssph._matrix().astype(np.float32)
+        sscale = np.float32(ssph.scale)
+        lev = splat.levels_from_buckets(sbks, RESOLUTION / (2.0 * sscale),
+                                        pyr.num_levels)
+        gmask = None
+        if gb != BUCKET_DISABLED:
+            _, _, _, h_px, _ = splat.project(sps, smatrix, RESOLUTION, sscale)
+            h_l = h_px * splat.exp2_int(-lev)
+            gmask = ~((h_l > GIANT_H) & (sbks >= gb))
+        struth = zsplat.zsplat_scatter(sps, svals, smatrix, RESOLUTION,
+                                       sscale, density_cut=cut,
+                                       extra_mask=gmask, level_override=lev)
+        layer = ssph._surface_giant_layer
+        if layer is not None:
+            struth = surface._max_composite(struth, layer)
+        struth = struth.cpu().numpy()
+        cov_t, cov_r = struth[..., 1] > 0, sraw[..., 1] > 0
+        flips = int((cov_t != cov_r).sum())
+        both = cov_t & cov_r
+        d_ok = np.isclose(sraw[..., 1][both], struth[..., 1][both],
+                          rtol=1e-5, atol=1e-4)
+        v_ok = np.isclose(sraw[..., 0][both], struth[..., 0][both],
+                          rtol=1e-5, atol=1e-6)
+        if layer is None:
+            giant = "no giant layer"
+        else:
+            ld = layer[..., 1].cpu().numpy()
+            giant = (f"giant layer covers {int((ld > 0).sum())} px, "
+                     f"front-most on {int(((ld == sraw[..., 1]) & cov_r).sum())}"
+                     " px")
+        log(f"phase {tag} truth: covered {int(cov_r.sum())} px "
+            f"({cov_r.mean():.4f} of the image), coverage flips {flips} "
+            f"({flips / max(cov_t.sum(), 1):.3e} of covered), depth within "
+            f"rtol 1e-5/atol 1e-4 on {d_ok.mean():.6f}, winner values agree "
+            f"on {v_ok.mean():.6f} of both-covered pixels "
+            f"({int((~v_ok).sum())} differ), against zsplat_scatter; {giant}"
+            f" ({time.perf_counter() - t0:.1f} s)")
+        check(cov_r.sum() > 0, f"{tag}: the surface image covers nothing")
+        check(flips <= 1e-4 * cov_t.sum(), f"{tag}: coverage flips {flips}")
+        check(d_ok.all(), f"{tag}: depth differs on {int((~d_ok).sum())} "
+              "pixels")
+        check(v_ok.mean() >= 0.999, f"{tag}: winner values agree on "
+              f"{v_ok.mean()}")
+        return float(cov_r.mean())
+
     def surface_frames(tag, percentile):
         """Phases S2-S4 at one density-cut percentile; returns the kernels'
         launches during its timed EXPORT frames and the covered share of
@@ -1173,31 +1534,10 @@ def main() -> int:
         log(f"phase S2 {tag}: {time.perf_counter() - t0:.1f} s")
 
         # ---- S3: the surface EXPORT path
-        splat_feed.launches = 0
-        splat_accum.launches = 0
-        zsplat_accum.launches = 0
-        zsplat_accum.plan_launches = 0
-        for _ in range(2):                      # warm-up frames
-            ssph.invalidate()
-            ssph.render(DrawReason.EXPORT)
-        torch.cuda.synchronize()
-        sframe_ms, swall_ms = [], []
-        for _ in range(FRAMES):
-            ssph.invalidate()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            ssph.render(DrawReason.EXPORT)
-            end.record()
-            torch.cuda.synchronize()
-            swall_ms.append((time.perf_counter() - t0) * 1e3)
-            sframe_ms.append(start.elapsed_time(end))
-        slaunches = {"splat_feed": splat_feed.launches,
-                     "accumulate_groups": splat_accum.launches,
-                     "accumulate_max_groups": zsplat_accum.launches,
-                     "zdeposit_plan": zsplat_accum.plan_launches}
+        reset_counts()
+        sframe_ms, swall_ms = export_frame_ms(ssph)
+        slaunches = read_counts(f"surface EXPORT {tag}",
+                                ("accumulate_max_groups", "zdeposit_plan"))
         smed = statistics.median(sframe_ms)
         simg = ssph.get_output_image()
         smooth_ms = timed_ms(lambda: smooth_image(simg, 0.01), 3)
@@ -1214,106 +1554,189 @@ def main() -> int:
             f"{smooth_ms:.3f} ms, presentation (filter + lighting) "
             f"{present_ms:.3f} ms, get_sph_image {content_ms:.3f} ms (host "
             f"wall); launches during the frames {slaunches}")
-        check(slaunches["accumulate_max_groups"] > 0
-              and slaunches["zdeposit_plan"] > 0,
-              f"K3 or its plan kernel was not launched on the surface EXPORT "
-              f"path: {slaunches}")
+        # ---- S3: the surface EXPORT path
+        reset_counts()
+        sframe_ms, swall_ms = export_frame_ms(ssph)
+        slaunches = read_counts(f"surface EXPORT {tag}",
+                                ("accumulate_max_groups", "zdeposit_plan"))
         check(content.shape == (RESOLUTION, RESOLUTION, 2)
               and np.isfinite(content).all(),
               f"surface get_sph_image {content.shape} not finite")
 
         # ---- S4: the surface output is right
-        t0 = time.perf_counter()
         sraw = ssph.get_image()
-        check(sraw.shape == (RESOLUTION, RESOLUTION, 2),
-              f"surface image shape {sraw.shape}")
-        check(np.isfinite(sraw).all(), "surface image not finite")
-        lev = splat.levels_from_buckets(sbks, RESOLUTION / (2.0 * sscale),
-                                        pyr.num_levels)
-        gmask = None
-        if gb != BUCKET_DISABLED:
-            _, _, _, h_px, _ = splat.project(sps, smatrix, RESOLUTION, sscale)
-            h_l = h_px * splat.exp2_int(-lev)
-            gmask = ~((h_l > GIANT_H) & (sbks >= gb))
-        struth = zsplat.zsplat_scatter(sps, svals, smatrix, RESOLUTION,
-                                       sscale, density_cut=cut,
-                                       extra_mask=gmask, level_override=lev)
-        if ssph._surface_giant_layer is not None:
-            struth = surface._max_composite(struth, ssph._surface_giant_layer)
-        struth = struth.cpu().numpy()
-        cov_t, cov_r = struth[..., 1] > 0, sraw[..., 1] > 0
-        flips = int((cov_t != cov_r).sum())
-        both = cov_t & cov_r
-        d_ok = np.isclose(sraw[..., 1][both], struth[..., 1][both],
-                          rtol=1e-5, atol=1e-4)
-        v_ok = np.isclose(sraw[..., 0][both], struth[..., 0][both],
-                          rtol=1e-5, atol=1e-6)
+        cov_mean = surface_truth(f"S4 {tag}", sraw, cut, gb)
         spres = vis.get_sph_presentation_image()
-        log(f"phase S4 {tag} truth: covered {int(cov_r.sum())} px "
-            f"({cov_r.mean():.4f} of the image), coverage flips {flips} "
-            f"({flips / max(cov_t.sum(), 1):.3e} of covered), depth within "
-            f"rtol 1e-5/atol 1e-4 on {d_ok.mean():.6f}, winner values agree "
-            f"on {v_ok.mean():.6f} of both-covered pixels "
-            f"({int((~v_ok).sum())} differ), against zsplat_scatter "
-            f"({time.perf_counter() - t0:.1f} s)")
-        check(cov_r.sum() > 0, "the surface image covers nothing")
-        check(flips <= 1e-4 * cov_t.sum(), f"coverage flips {flips}")
-        check(d_ok.all(), f"depth differs on {int((~d_ok).sum())} pixels")
-        check(v_ok.mean() >= 0.999, f"winner values agree on {v_ok.mean()}")
         check(spres.shape == (RESOLUTION, RESOLUTION, 4)
               and spres.dtype == np.uint8,
               f"surface presentation image {spres.shape} {spres.dtype}")
         check(spres[..., :3].std() > 0,
               "surface presentation image is constant")
-        return slaunches, float(cov_r.mean())
+        return slaunches, cov_mean
 
     runs = {tag: surface_frames(tag, pct) for tag, pct in SURFACE_CUTS}
     slaunches = {tag: r[0] for tag, r in runs.items()}
     check(runs["cut0"][1] >= 0.5, f"the lowest cut covers {runs['cut0'][1]} "
           "of the image, not at least half")
 
+    # ---- phase SI: the interactive surface at both cuts --------------------
+    from topsy_tpu_torch.ops.morton import min_slice_width
+    from topsy_tpu_torch.ops.splat_giant import giant_plan
+    from topsy_tpu_torch.render.surface import surface_column_launches
+    si_launches, si_summary = {}, {}
+    srotation, sscale0 = np.array(ssph.rotation_matrix), ssph.scale
+    q = min_slice_width(store.presorted_layout)
+    for tag, pct in SURFACE_CUTS:
+        t0 = time.perf_counter()
+        vis.rotation_matrix = srotation
+        vis.scale = sscale0
+        ssph.set_density_cut_percentile(pct)
+        ssph.render(DrawReason.CHANGE)
+        cut = np.float32(ssph._density_cut_value())
+        gb = int(ssph._giant_bucket)
+        # SI1: K3 on slices one and three quanta wide and on the CHANGE
+        # frame's own full-width launch, every call held and timed
+        for col0, width in ((0, q), (q, 3 * q), (0, G)):
+            ps_c, vals_c, bks_c, _, chunks_c, kw_c = surface_column_launches(
+                sps, svals, sbks, None, None, col0, width, G)
+            for ci, sl in enumerate(chunks_c):
+                main_kw, t2_kw, t3_kw, drop, shape = zsplat_atlas.deposit_calls(
+                    ps_c[sl], vals_c[sl], ssph._matrix().astype(np.float32),
+                    RESOLUTION, np.float32(ssph.scale), bks_c[sl],
+                    density_cut=cut, giants=gb, **kw_c)
+                check(main_kw["group"] == min(width, 512),
+                      f"SI width {width}: groups of {main_kw['group']}")
+                keys = zsplat_accum.pack_atlas(torch.zeros(shape, device=dev))
+                for name, kw in (("main", main_kw), ("tier2", t2_kw),
+                                 ("tier3", t3_kw)):
+                    keys = k3_compare(f"SI_{tag}_w{width}_chunk{ci}_{name}",
+                                      kw, keys, timing=ci == 0)
+                log(f"phase SI {tag} width {width} chunk {ci}: dropped "
+                    f"{int(drop.item())}")
+                del main_kw, t2_kw, t3_kw, keys
+        # SI2: interactive views, each a CHANGE draw then REFINE draws
+        reset_counts()
+        change_ms, n_frames, drops = [], [], []
+        for v in range(2 + FRAMES):
+            vis.rotate(0.0, 0.05)
+            frames = drive_view(vis)
+            if v >= 2:
+                change_ms.append(frames[0][0])
+                n_frames.append(len(frames))
+                drops.append([f[2] for f in frames])
+            log(f"phase SI2 {tag} view {v}{' (warm-up)' if v < 2 else ''}: "
+                "frames (ms by the frame clock, column ranges, dropped, mass "
+                f"scale) {[(round(f[0], 3),) + f[1:] for f in frames]}")
+        si_launches[tag] = read_counts(f"interactive surface {tag}",
+                                       ("accumulate_max_groups",
+                                        "zdeposit_plan"))
+        # SI3: the completed interactive image against EXPORT of the view
+        im_i = ssph.get_output_image().clone()
+        ssph.invalidate()
+        ssph.render(DrawReason.EXPORT)
+        im_e = ssph.get_output_image()
+        cov_i, cov_e = im_i[..., 1] > 0, im_e[..., 1] > 0
+        flips = int((cov_i != cov_e).sum())
+        both = cov_i & cov_e
+        v_eq = float((im_i[..., 0][both] == im_e[..., 0][both]).float()
+                     .mean())
+        d_eq = float((im_i[..., 1][both] == im_e[..., 1][both]).float()
+                     .mean())
+        log(f"phase SI2 {tag}: {FRAMES} views; CHANGE frame median "
+            f"{statistics.median(change_ms):.3f} ms by the frame clock "
+            f"(frames {[round(t, 3) for t in change_ms]}); frames to "
+            f"completion {n_frames}; dropped per frame {drops}; launches "
+            f"{si_launches[tag]}")
+        log(f"phase SI3 {tag}: the completed interactive image against the "
+            f"EXPORT image of its view: coverage flips {flips} of "
+            f"{int(cov_e.sum())} covered; values equal on {v_eq:.6f}, depths "
+            f"equal on {d_eq:.6f} of both-covered pixels; bit-identical "
+            f"{bool(torch.equal(im_i, im_e))}")
+        check(flips <= 1e-4 * int(cov_e.sum()), f"SI3 {tag}: coverage flips "
+              f"{flips}")
+        check(v_eq >= 0.999, f"SI3 {tag}: values equal on {v_eq}")
+        si_summary[tag] = dict(change_ms=change_ms, frames=n_frames,
+                               dropped=drops, flips=flips)
+        log(f"phase SI {tag}: {time.perf_counter() - t0:.1f} s")
+    # SI4: zoomed out until the surface giant plan takes candidates, at the
+    # lowest cut (giants are diffuse), against the scatter truth
+    vis.rotation_matrix = srotation
+    for zs in (250.0, 300.0, 400.0, 800.0):
+        size, _ = giant_plan(store.giant_meta(), RESOLUTION, zs,
+                             pyr.num_levels)
+        if size > 0:
+            break
+    check(size > 0, "no scale up to 800 plans a surface giant layer")
+    vis.scale = zs
+    frames = drive_view(vis)
+    check(ssph._surface_giant_layer is not None, "the interactive surface "
+          "frame drew no giant layer")
+    log(f"phase SI4 at scale {zs} ({size} giant candidates): frames "
+        f"{[(round(f[0], 3),) + f[1:] for f in frames]}")
+    surface_truth("SI4 cut0 zoomed out", ssph.get_image(),
+                  np.float32(ssph._density_cut_value()),
+                  int(ssph._giant_bucket))
+    si_summary["giant_scale"] = zs
+    vis.scale = sscale0
+
     # ---- phase 8: kernels --------------------------------------------------
+    # launches per path, each counted from 0 just before its path ran
+    paths = {"export": launches, "interactive": ilaunches, **mlaunches,
+             **{f"surface_export_{k}": v for k, v in slaunches.items()},
+             **{f"surface_interactive_{k}": v
+                for k, v in si_launches.items()}}
+
+    def by_path(name):
+        counts = {p: c.get(name, 0) for p, c in paths.items()}
+        return {p: n for p, n in counts.items() if n}
+
+    def mode_times(kernel):
+        """Phase M's timed calls of one kernel: (ms, plain ms, bound ms)
+        keyed by call."""
+        got = {k.replace(f"_{kernel}", ""): v for k, v in mtimes.items()
+               if f"_{kernel}" in k}
+        return {f"modes_{part}_by_call": {k: v[i] for k, v in got.items()}
+                for i, part in enumerate(("ms", "plain_ms", "bound_ms"))}
+
     kernels = [
         {"name": "splat_feed", "route": "triton",
          "source": "topsy_tpu_torch/ops/splat_feed.py",
          "replaces": "topsy_tpu/ops/splat_feed.py:207",
-         "launches": launches["splat_feed"] + ilaunches["splat_feed"],
-         "launches_by_path": {"export": launches["splat_feed"],
-                              "interactive": ilaunches["splat_feed"]},
+         "launches": sum(by_path("splat_feed").values()),
+         "launches_by_path": by_path("splat_feed"),
          "max_abs_err": feed_err,
          "ms": feed_ms, "plain_ms": feed_plain_ms,
          "bound_ms": feed_bound[0], "bound_by": feed_bound[1],
          "library_ms": None,
-         **interactive_times(isummary["feed_t"])},
+         **interactive_times(isummary["feed_t"]), **mode_times("K1")},
         {"name": "accumulate_groups", "route": "cuda",
          "source": "topsy_tpu_torch/csrc/splat_accum.cu",
          "replaces": "topsy_tpu/ops/splat_pallas.py:317",
-         "launches": (launches["accumulate_groups"]
-                      + ilaunches["accumulate_groups"]),
-         "launches_by_path": {"export": launches["accumulate_groups"],
-                              "interactive": ilaunches["accumulate_groups"]},
+         "launches": sum(by_path("accumulate_groups").values()),
+         "launches_by_path": by_path("accumulate_groups"),
          "max_abs_err": accum_err,
          "ms": accum_ms["main"], "plain_ms": accum_plain_ms["main"],
          "bound_ms": accum_bound["main"][0],
          "bound_by": accum_bound["main"][1], "library_ms": None,
          "ms_by_shape": accum_ms, "plain_ms_by_shape": accum_plain_ms,
          "bound_ms_by_shape": {k: v[0] for k, v in accum_bound.items()},
-         **interactive_times(isummary["accum_t"])},
+         **interactive_times(isummary["accum_t"]), **mode_times("K2")},
         {"name": "accumulate_max_groups", "route": "cuda",
          "source": "topsy_tpu_torch/csrc/zsplat_accum.cu",
          "replaces": "topsy_tpu/ops/zsplat_pallas.py:203",
-         "launches": slaunches["cut50"]["accumulate_max_groups"],
+         "launches": sum(by_path("accumulate_max_groups").values()),
+         "launches_by_path": by_path("accumulate_max_groups"),
+         "plan_launches_by_path": by_path("zdeposit_plan"),
          "max_abs_err": k3_err, "ms": k3_ms["cut50_chunk0_main"],
          "plain_ms": k3_plain_ms["cut50_chunk0_main"],
          "bound_ms": k3_bound["cut50_chunk0_main"][0],
          "bound_by": k3_bound["cut50_chunk0_main"][1], "library_ms": None,
-         "launches_by_cut": {k: v["accumulate_max_groups"]
-                             for k, v in slaunches.items()},
-         "plan_launches_by_cut": {k: v["zdeposit_plan"]
-                                  for k, v in slaunches.items()},
          "ms_by_shape": k3_ms, "plain_ms_by_shape": k3_plain_ms,
          "bound_ms_by_shape": {k: v[0] for k, v in k3_bound.items()}},
     ]
+    log(f"summary: modes {json.dumps(msummary)}; interactive surface "
+        f"{json.dumps(si_summary)}")
+    log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,21 @@ PINNED = [
     (p_zatlas, r_zatlas, ["GROUP"]),
 ]
 
+# (module, attribute path) pairs whose reference modules import matplotlib,
+# resolved inside the test so that the file collects without matplotlib
+# (the card tests run where it is not installed)
+LAZY_PINNED = [
+    ("visualizer", "VALID_RENDER_MODES"),
+    *[("color.maps", f"RGBColormap.{a}") for a in (
+        "input_channels", "max_percentile", "dynamic_range",
+        "_sterrad_to_arcsec2", "_default_params")],
+    *[("color.maps", f"RGBHDRColormap.{a}")
+      for a in ("max_percentile", "dynamic_range")],
+    *[("color.maps", f"BivariateColormap.{a}")
+      for a in ("default_quantity_name", "_default_params")],
+    ("render.periodic", "PeriodicSPHRenderer.num_repetitions"),
+]
+
 CASES = [(p, r, name) for p, r, names in PINNED for name in names]
 
 
@@ -51,6 +66,20 @@ CASES = [(p, r, name) for p, r, names in PINNED for name in names]
     ids=[f"{r.__name__.rsplit('.', 1)[-1]}.{n}" for _, r, n in CASES])
 def test_restated_constant_matches_reference(port, ref, name):
     assert getattr(port, name) == getattr(ref, name)
+
+
+@pytest.mark.parametrize("module,path", LAZY_PINNED,
+                         ids=[f"{m}.{p}" for m, p in LAZY_PINNED])
+def test_restated_constant_of_matplotlib_module_matches_reference(module,
+                                                                  path):
+    import importlib
+    values = []
+    for package in ("topsy_tpu_torch", "topsy_tpu"):
+        obj = importlib.import_module(f"{package}.{module}")
+        for part in path.split("."):
+            obj = getattr(obj, part)
+        values.append(obj)
+    assert values[0] == values[1]
 
 
 def test_accum_foot_matches_atlas_foot():

@@ -1,5 +1,6 @@
-"""The PyTorch port imports and renders (univariate EXPORT, CHANGE and
-REFINE frames, surface EXPORT frames) with jax and topsy_tpu made
+"""The PyTorch port imports and renders every mode (univariate EXPORT,
+CHANGE and REFINE frames, surface EXPORT and CHANGE frames, rgb, rgb-hdr,
+bivariate, the depth pick and periodic tiling) with jax and topsy_tpu made
 unimportable, and its sources import neither."""
 
 import os
@@ -37,6 +38,22 @@ assert raw.shape == (64, 64, 2) and np.isfinite(raw).all()
 assert (raw[..., 1] > 0).any()
 pres = vis.get_sph_presentation_image()
 assert pres.shape == (64, 64, 4) and pres.dtype == np.uint8
+vis.draw(DrawReason.CHANGE)
+assert vis._sph.last_column_ranges and (vis._sph.get_image()[..., 1] > 0).any()
+for mode, dtype in (("rgb", np.uint8), ("rgb-hdr", np.float16),
+                    ("bivariate", np.uint8)):
+    vis.render_mode = mode
+    pres = vis.get_sph_presentation_image()
+    assert pres.shape == (64, 64, 4) and pres.dtype == dtype, mode
+    assert pres[..., :3].astype(np.float32).std() > 0, mode
+    assert vis.draw(DrawReason.CHANGE).dtype == dtype
+depth = vis.get_depth_image()
+assert depth.shape == (64, 64) and np.isfinite(depth).any()
+tiled = topsy_tpu_torch.test(2000, render_resolution=64, device="cpu",
+                             canvas_class=OffscreenCanvas,
+                             periodic_tiling=True)
+im = tiled.get_sph_image()
+assert im.shape == (64, 64) and np.isfinite(im).all() and im.sum() > 0
 for banned in ("jax", "topsy_tpu"):
     loaded = [m for m in sys.modules
               if m == banned or m.startswith(banned + ".")]

@@ -142,9 +142,12 @@ def test_density_cut_and_modes(port):
     assert (after[..., 1] > 0).sum() < (before[..., 1] > 0).sum()
     sph.set_density_cut_percentile(50.0)
     sph.invalidate()
-    with pytest.raises(NotImplementedError, match="M11"):
-        sph.render(DrawReason.CHANGE)
-    with pytest.raises(NotImplementedError, match="M10"):
-        port.render_mode = "bivariate"
+    sph.render(DrawReason.CHANGE)
+    assert sph.last_column_ranges and not sph.needs_refine()
+    assert (sph.get_image()[..., 1] > 0).any()
     frame = port.draw(DrawReason.EXPORT, target=(120, 96))
     assert frame.shape == (96, 120, 4) and frame.dtype == np.uint8
+    port.render_mode = "bivariate"
+    frame = port.draw(DrawReason.EXPORT, target=(120, 96))
+    assert frame.shape == (96, 120, 4) and frame[..., :3].std() > 0
+    port.render_mode = "surface"

@@ -139,9 +139,8 @@ def test_load_entry_point_and_device_default():
 
 
 def test_non_export_reasons(port):
-    """PRESENTATION_CHANGE renders nothing; a univariate CHANGE renders an
-    interactive column frame; a surface CHANGE still raises (the
-    interactive surface is ROADMAP item M11)."""
+    """PRESENTATION_CHANGE renders nothing; a univariate CHANGE and a
+    surface CHANGE each render an interactive column frame."""
     port.render_sph(DrawReason.PRESENTATION_CHANGE)   # a no-op
     v = topsy_tpu_torch.test(3000, render_resolution=64, device="cpu",
                              canvas_class=OffscreenCanvas)
@@ -149,5 +148,6 @@ def test_non_export_reasons(port):
     assert v._sph.last_column_ranges and not v._sph.needs_refine()
     assert np.isfinite(v._sph.get_image()).all()
     v.render_mode = "surface"
-    with pytest.raises(NotImplementedError, match="M11"):
-        v.render_sph(DrawReason.CHANGE)
+    v.render_sph(DrawReason.CHANGE)
+    assert v._sph.last_column_ranges and not v._sph.needs_refine()
+    assert np.isfinite(v._sph.get_image()).all()

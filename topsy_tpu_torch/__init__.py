@@ -1,12 +1,14 @@
 """topsy_tpu_torch — the PyTorch/CUDA port of topsy_tpu.
 
-The presorted EXPORT renders on tensors, with hand-written kernels for
-NVIDIA Hopper: the univariate (additive) mode (loader -> host presort ->
-feed kernel K1, ``ops/splat_feed.py``, Triton -> low-rank deposit kernel K2,
-``csrc/splat_accum.cu`` -> spill tiers -> pyramid collapse -> giant layer ->
-colormap) and the surface (z-buffered) mode (host presort -> plain front end
--> front-most-fragment kernel K3, ``csrc/zsplat_accum.cu`` -> spill tiers ->
-max-composite collapse -> giant layer -> bilateral filter and lighting).
+The presorted renders on tensors, EXPORT and interactive frames, with
+hand-written kernels for NVIDIA Hopper: the additive modes (univariate,
+bivariate, RGB and RGB-HDR, the depth pick, periodic tiling: loader -> host
+presort -> feed kernel K1, ``ops/splat_feed.py``, Triton -> low-rank deposit
+kernel K2, ``csrc/splat_accum.cu`` -> spill tiers -> pyramid collapse ->
+giant layer -> lattice composite -> colormap) and the surface (z-buffered)
+mode (host presort -> plain front end -> front-most-fragment kernel K3,
+``csrc/zsplat_accum.cu`` -> spill tiers -> max-composite collapse -> giant
+layer -> bilateral filter and lighting).
 The package imports ``torch`` and never ``jax`` nor anything of
 ``topsy_tpu``: it keeps pinned copies of the jax-free modules it needs
 (config, camera, drawreason, canvas, overlays, units, cells, progression,
@@ -36,7 +38,8 @@ def test(nparticle=config.TEST_DATA_NUM_PARTICLES_DEFAULT, **kwargs):
     return visualizer.Visualizer(
         data_loader_class=loaders.TestDataLoader,
         data_loader_args=(nparticle,),
-        data_loader_kwargs={"with_cells": kwargs.pop("with_cells", False)},
+        data_loader_kwargs={"with_cells": kwargs.pop("with_cells", False),
+                            "periodic": kwargs.get("periodic_tiling", False)},
         **kwargs)
 
 

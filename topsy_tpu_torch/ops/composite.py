@@ -1,7 +1,9 @@
-"""2x pyramid upsampling for the atlas collapses.
+"""2x pyramid upsampling for the atlas collapses, and the periodic
+lattice composite.
 
-Counterpart of ``_upsample2x_matrix``, ``upsample2x_kind_cm`` and
-``upsample2x_zmax_cm`` in ``topsy_tpu/ops/composite.py``.  The
+Counterpart of ``_upsample2x_matrix``, ``upsample2x_kind_cm``,
+``upsample2x_zmax_cm``, ``_integer_shift``, ``shift_bilinear`` and
+``lattice_composite`` in ``topsy_tpu/ops/composite.py``.  The
 interpolation matrices are the
 reference's own (host numpy, cached); the two per-axis products run as
 float32 matmuls with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` is
@@ -95,3 +97,45 @@ def upsample2x_zmax_cm(dv: torch.Tensor) -> torch.Tensor:
     payload = torch.where(near_cov, near_v, up[1] * inv)
     return torch.stack([torch.where(valid, up[0] * inv, 0.0),
                         torch.where(valid, payload, 0.0)])
+
+
+def _integer_shift(im: torch.Tensor, iy: int, ix: int) -> torch.Tensor:
+    """Shift (H, W, C) by whole pixels (rows down by ``iy``, columns right
+    by ``ix``), zero-filling the vacated region."""
+    H, W = im.shape[0], im.shape[1]
+    out = torch.zeros_like(im)
+    if abs(iy) >= H or abs(ix) >= W:
+        return out
+    out[max(iy, 0):H + min(iy, 0), max(ix, 0):W + min(ix, 0)] = \
+        im[max(-iy, 0):H - max(iy, 0), max(-ix, 0):W - max(ix, 0)]
+    return out
+
+
+def shift_bilinear(im: torch.Tensor, dy, dx) -> torch.Tensor:
+    """Shift (H, W, C) by fractional (dy, dx) pixels (host float32
+    scalars) with bilinear filtering and zero fill."""
+    dy, dx = np.float32(dy), np.float32(dx)
+    iy, ix = int(np.floor(dy)), int(np.floor(dx))
+    fy = float(dy - np.float32(iy))
+    fx = float(dx - np.float32(ix))
+    gy, gx = float(np.float32(1.0) - np.float32(fy)), \
+        float(np.float32(1.0) - np.float32(fx))
+    return (_integer_shift(im, iy, ix) * gy * gx
+            + _integer_shift(im, iy, ix + 1) * gy * fx
+            + _integer_shift(im, iy + 1, ix) * fy * gx
+            + _integer_shift(im, iy + 1, ix + 1) * fy * fx)
+
+
+def lattice_composite(image: torch.Tensor, offsets_px, weights
+                      ) -> torch.Tensor:
+    """Sum of weighted bilinear-shifted copies of the (H, W, C) ``image``.
+
+    offsets_px: (K, 2) host (dy, dx) pixel shifts; weights: (K,) host
+    weights.  One instance at a time, as the reference's scan; a
+    zero-weight instance still costs its shift."""
+    offsets_px = np.asarray(offsets_px, dtype=np.float32).reshape(-1, 2)
+    weights = np.asarray(weights, dtype=np.float32).reshape(-1)
+    out = torch.zeros_like(image)
+    for (dy, dx), w in zip(offsets_px, weights):
+        out = out + shift_bilinear(image, dy, dx) * float(w)
+    return out

@@ -1,7 +1,9 @@
-"""The SPH renderer: the presorted EXPORT and interactive render loops.
+"""The SPH renderers: the presorted EXPORT and interactive render loops.
 
-Counterpart of ``SPHRenderer`` in ``topsy_tpu/render/sph.py`` over the host
-presort.  ``render(DrawReason.EXPORT)`` plans the exact giant layer
+Counterpart of ``SPHRenderer``, ``RGBSPHRenderer`` (the three band masses,
+C = 3) and ``DepthSPHRenderer`` (a mass-weighted clip-depth channel, the
+double-click pick's ``get_depth_image``) in ``topsy_tpu/render/sph.py``
+over the host presort.  ``render(DrawReason.EXPORT)`` plans the exact giant layer
 (``_prepare_giants``), then renders the presorted snapshot through
 ``splat_atlas_fields`` in pieces of at most ``config.SPLAT_FEED_LAUNCH_CAP``
 particles and sums them.  CHANGE and REFINE frames switch the progression to
@@ -17,6 +19,7 @@ partial frame look whole.
 
 from __future__ import annotations
 
+import copy
 import logging
 
 import numpy as np
@@ -165,6 +168,32 @@ class SPHRenderer:
             self.render(DrawReason.EXPORT)
         return self.get_output_image() * self.last_render_mass_scale
 
+    def get_depth_image(self, depth_renderer_reason=DrawReason.CHANGE
+                        ) -> np.ndarray:
+        """Mass-weighted mean depth in world units, for the double-click
+        pick; empty pixels are NaN (the pick ignores them)."""
+        depth_renderer = self._get_depth_renderer()
+        depth_renderer.render(depth_renderer_reason)
+        image = depth_renderer.get_image()
+        with np.errstate(invalid="ignore", divide="ignore"):
+            depth_viewport = image[..., -1] / image[..., 0]
+        return (depth_viewport - 0.5) * self.scale * 2.0
+
+    def _get_depth_renderer(self) -> "DepthSPHRenderer":
+        """The cached depth renderer over the same store and resolution,
+        given a copy of this renderer's progression and its view."""
+        r = getattr(self, "_depth_renderer", None)
+        if r is None:
+            r = DepthSPHRenderer(self._store,
+                                 copy.copy(self._render_progression),
+                                 self._resolution)
+            self._depth_renderer = r
+        r._render_progression = copy.copy(self._render_progression)
+        r.rotation_matrix = self.rotation_matrix
+        r.position_offset = self.position_offset
+        r.scale = self.scale
+        return r
+
     # -- render loop -------------------------------------------------------------
 
     def render(self, draw_reason=DrawReason.CHANGE):
@@ -228,6 +257,11 @@ class SPHRenderer:
         mean = self._render_timer.running_mean_duration
         self.last_render_fps = 1.0 / mean if mean > 0 else 0.0
         self.has_rendered = True
+        self._postprocess_frame()
+
+    def _postprocess_frame(self):
+        """Hook for subclasses, called as a frame closes (periodic
+        tiling)."""
 
     # -- deferred frame timing (one host round trip per interactive frame) ----
 
@@ -419,3 +453,16 @@ class SPHRenderer:
             mask = prog.get_selected_cell_mask()
             self._cell_table = self._store.cell_mask_table(mask)
             self._cell_table_generation = gen
+
+
+class RGBSPHRenderer(SPHRenderer):
+    """Three-band (I, V, U) stellar-light renderer."""
+
+    _buffer_name = "rgb"
+
+
+class DepthSPHRenderer(SPHRenderer):
+    """Adds a mass-weighted clip-depth channel: (mass, mass * quantity,
+    mass * clip z)."""
+
+    _depth_channel = True

@@ -62,10 +62,12 @@ class ParticleStore:
     def host_values_for(self, buffer_name: str) -> np.ndarray:
         """(n, C) host channel values: (mass, mass * quantity) for
         ``mass_and_quantity``, (mass, raw quantity) for ``surface_values``
-        (the surface winner displays the quantity itself)."""
+        (the surface winner displays the quantity itself), the three band
+        masses of ``loader.get_rgb_masses()`` for ``rgb``."""
+        if buffer_name == "rgb":
+            return self._loader.get_rgb_masses().astype(np.float32)
         if buffer_name not in ("mass_and_quantity", "surface_values"):
-            raise KeyError(f"{buffer_name!r}: the port renders the univariate "
-                           "and surface buffers only (ROADMAP M10)")
+            raise KeyError(buffer_name)
         if self._quantity_name is None:
             q = np.zeros_like(self._mass)
         else:
@@ -138,6 +140,10 @@ class ParticleStore:
         return self._state["cell_ids_presorted"]
 
     def _values_pair(self, buffer_name: str):
+        """(channel-major presorted values, giant pool values) of one
+        buffer, converted and uploaded once per (buffer, values version):
+        alternating buffers (an RGB view and its depth pick) stay cached,
+        and a quantity switch drops the superseded versions."""
         self.ensure_presorted()
         key = (buffer_name, self.values_version)
         got = self._values.get(key)
@@ -145,7 +151,9 @@ class ParticleStore:
             got = convert.values_from_reference(
                 self._layout, self.host_values_for(buffer_name),
                 self.giant_meta()[0], self.device)
-            self._values = {key: got}
+            self._values = {k: v for k, v in self._values.items()
+                            if k[1] == self.values_version}
+            self._values[key] = got
         return got
 
     def presorted_values_cm_for(self, buffer_name: str) -> torch.Tensor:

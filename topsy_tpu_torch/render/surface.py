@@ -1,15 +1,20 @@
 """Occlusion (surface) renderer: front-most-fragment semantics.
 
-Counterpart of ``SurfaceSPHRenderer`` in ``topsy_tpu/render/surface.py`` for
-the EXPORT path: particles above a density-percentile cut render as
+Counterpart of ``SurfaceSPHRenderer`` in ``topsy_tpu/render/surface.py``
+over the column path: particles above a density-percentile cut render as
 hemispheres with a greater-compare depth test; the output channels are
-(quantity value, surface depth).  ``render(DrawReason.EXPORT)`` activates
-the columns progression (as the reference does even for EXPORT), plans the
-exact dense giant layer, and renders the whole column range through
-``zsplat_atlas`` in group-axis chunks of at most
-``config.SPLAT_COLUMNS_GROUP_CAP`` groups, combined by max-compositing.  The
-photometric mass scale is unity.  CHANGE / REFINE frames (the interactive
-surface) are ROADMAP item M11.
+(quantity value, surface depth).  Every frame activates the columns
+progression (as the reference does even for EXPORT), plans the exact dense
+giant layer once per view, and renders each column range in one launch
+through ``zsplat_atlas`` in group-axis chunks of at most
+``config.SPLAT_COLUMNS_GROUP_CAP`` groups, combined by max-compositing.
+EXPORT renders every column.  CHANGE and REFINE frames (the interactive
+surface) render the progression's ranges barrier-free with deferred timing
+(the frame clock, as ``render/sph.py``); a REFINE frame continues the image
+and keeps the view's giant plan, and the giant layer is composited again
+after every frame (max is idempotent).  The photometric mass scale is
+unity.  A layout without column slicing (the reference's scatter fallback)
+is ROADMAP item M13.
 """
 
 from __future__ import annotations
@@ -23,17 +28,17 @@ from .sph import SPHRenderer
 from .store import ParticleStore
 
 
-def _render_block_columns_surface(pos_smooth, values, buckets, cell_ids,
-                                  cell_table, matrix, scale, density_cut,
-                                  col0: int, giant_bucket: int, *,
-                                  resolution: int, width: int,
-                                  pad_group: int):
-    """Column-slice z-buffered render through ``zsplat_atlas``: columns
-    [col0, col0 + width) of the (groups x pad_group) presorted matrix, each
-    original group kept as its own group (``group=width``), split into
-    group-axis chunks of ``config.SPLAT_COLUMNS_GROUP_CAP`` groups whose
-    images are max-composited and whose dropped counts are summed.
-    ``cell_table`` (None = no culling) masks unselected cells."""
+def surface_column_launches(pos_smooth, values, buckets, cell_ids,
+                            cell_table, col0: int, width: int,
+                            pad_group: int):
+    """The ``zsplat_atlas`` calls of the surface column launch over columns
+    [col0, col0 + width) of the (groups x pad_group) presorted matrix:
+    (sliced pos_smooth, values, buckets, cull mask or None, the row slices
+    of its group-axis chunks, keyword arguments).  A narrow slice keeps
+    each original group as its own group (``group=width``), padded to
+    ``splat_atlas.column_pad_multiple``; every call has the column launch's
+    raised spill budgets.  ``cell_table`` (None = no culling) masks
+    unselected cells."""
     n_pad = pos_smooth.shape[0]
     ngr = n_pad // pad_group
     c0 = min(max(int(col0), 0), pad_group - width)
@@ -55,21 +60,31 @@ def _render_block_columns_surface(pos_smooth, values, buckets, cell_ids,
         subgroups = splat_atlas.column_pad_multiple(pad_group, width)
         g_eff = width
     ps_s = slice_cols(pos_smooth)
-    vals_s = slice_cols(values)
-    bks_s = slice_cols(buckets)
+    kw = dict(group=group, subgroups=subgroups,
+              spill_group_cap=splat_atlas.COLUMN_SPILL_GROUP_CAP,
+              t3_cap=splat_atlas.COLUMN_T3_CAP)
+    return (ps_s, slice_cols(values), slice_cols(buckets), mask,
+            column_chunks(ps_s.shape[0], g_eff), kw)
 
-    def launch(sl):
-        return zsplat_atlas.zsplat_atlas(
-            ps_s[sl], vals_s[sl], matrix, resolution, scale, bks_s[sl],
+
+def _render_block_columns_surface(pos_smooth, values, buckets, cell_ids,
+                                  cell_table, matrix, scale, density_cut,
+                                  col0: int, giant_bucket: int, *,
+                                  resolution: int, width: int,
+                                  pad_group: int):
+    """Column-slice z-buffered render through ``zsplat_atlas``
+    (``surface_column_launches``): the chunks' images max-composited, their
+    dropped counts summed."""
+    ps, vals, bks, mask, chunks, kw = surface_column_launches(
+        pos_smooth, values, buckets, cell_ids, cell_table, col0, width,
+        pad_group)
+    im, dropped = None, 0
+    for sl in chunks:
+        im_p, d_p = zsplat_atlas.zsplat_atlas(
+            ps[sl], vals[sl], matrix, resolution, scale, bks[sl],
             density_cut=density_cut,
             extra_mask=None if mask is None else mask[sl],
-            giants=giant_bucket, group=group, subgroups=subgroups,
-            spill_group_cap=splat_atlas.COLUMN_SPILL_GROUP_CAP,
-            t3_cap=splat_atlas.COLUMN_T3_CAP)
-
-    im, dropped = None, 0
-    for sl in column_chunks(ps_s.shape[0], g_eff):
-        im_p, d_p = launch(sl)
+            giants=giant_bucket, **kw)
         im = im_p if im is None else _max_composite(im, im_p)
         dropped = dropped + d_p
     return im, dropped
@@ -149,26 +164,30 @@ class SurfaceSPHRenderer(SPHRenderer):
     def render(self, draw_reason=DrawReason.CHANGE):
         if draw_reason == DrawReason.PRESENTATION_CHANGE:
             return
-        if draw_reason != DrawReason.EXPORT:
-            raise NotImplementedError(
-                f"{draw_reason}: the PyTorch port renders surface EXPORT "
-                "frames only; the interactive surface is ROADMAP item M11")
         # the reference activates the columns progression for EXPORT too
-        if not self._maybe_activate_columns(DrawReason.CHANGE):
-            raise NotImplementedError("a presort layout without column "
-                                      "slicing (the scatter fallback) is "
-                                      "not ported")
+        if not self._maybe_activate_columns(
+                DrawReason.CHANGE if draw_reason == DrawReason.EXPORT
+                else draw_reason):
+            raise NotImplementedError(
+                f"{draw_reason} without the column progression: the "
+                "surface scatter fallback is ROADMAP item M13")
         prog = self._render_progression
-        prog.select_sphere(-np.asarray(self.position_offset), self.scale * 1.2)
-        self._refresh_cell_table()
+        if draw_reason != DrawReason.REFINE:
+            prog.select_sphere(-np.asarray(self.position_offset),
+                               self.scale * 1.2)
+            self._refresh_cell_table()
 
         matrix = self._matrix().astype(np.float32)
         scale = np.float32(self.scale)
         cut = np.float32(self._density_cut_value())
-        self._prepare_surface_giants(matrix, scale, cut)
-
+        self._discard_pending_timing()
+        self._frame_clock.start()
+        first_block = draw_reason != DrawReason.REFINE or self._image is None
+        self._prepare_surface_giants(matrix, scale, cut,
+                                     keep=not first_block)
         prog.start_frame(draw_reason)
-        first_block = True
+        self._dropped_splats = None
+        self.last_column_ranges = []
         while (block := prog.get_block(
                 self._render_timer.total_time_in_frame())) is not None:
             starts, lens = block
@@ -182,12 +201,16 @@ class SurfaceSPHRenderer(SPHRenderer):
             with self._render_timer:
                 self._image = (layer if self._image is None
                                else _max_composite(self._image, layer))
-        self._finish_frame(prog)
+        self._finish_frame(prog,
+                           defer_timing=draw_reason != DrawReason.EXPORT)
         self.last_render_mass_scale = 1.0  # max semantics need no rescale
 
-    def _prepare_surface_giants(self, matrix, scale, cut):
+    def _prepare_surface_giants(self, matrix, scale, cut, keep: bool = False):
         """Per-view giant planning: the bucket exclusion threshold of the
-        windowed column slices and the exact dense hemisphere layer."""
+        windowed column slices and the exact dense hemisphere layer;
+        ``keep`` (a REFINE continuation, same view) reuses both."""
+        if keep and self._giant_bucket is not None:
+            return
         store = self._store
         num_levels = splat_atlas.default_pyramid(self._resolution).num_levels
         size, b_thresh = splat_giant.giant_plan(
@@ -207,7 +230,14 @@ class SurfaceSPHRenderer(SPHRenderer):
     def _render_columns_surface(self, matrix, scale, cut, col0: int,
                                 ncols: int, first_block: bool) -> bool:
         """One column launch over columns [col0, col0 + ncols) of the main
-        presort layout (the host layout has no decimation tiers)."""
+        presort layout (the host layout has no decimation tiers), added to
+        the frame's image by max-compositing and to its dropped count (on
+        the device).  Returns the updated ``first_block``."""
+        tier = self._render_progression.last_block_tier
+        if tier != 0:
+            raise NotImplementedError(
+                f"decimation tier {tier}: the column mips are ROADMAP item "
+                "M9b")
         store = self._store
         culling = self._render_progression.get_selected_cell_mask() is not None
         with self._render_timer:
@@ -220,7 +250,9 @@ class SurfaceSPHRenderer(SPHRenderer):
                 matrix, scale, cut, col0, int(self._giant_bucket),
                 resolution=self._resolution, width=ncols,
                 pad_group=store.presorted_layout.pad_group)
-            self._dropped_splats = dropped
+            self.last_column_ranges.append((col0, ncols))
+            self._dropped_splats = (dropped if self._dropped_splats is None
+                                    else self._dropped_splats + dropped)
             if first_block:
                 self._image = im
                 first_block = False
@@ -230,8 +262,10 @@ class SurfaceSPHRenderer(SPHRenderer):
 
     @property
     def last_dropped_splats(self) -> int:
-        """Splats dropped by the bounded spill tiers in the last column
-        launch, summed over its group-axis chunks."""
+        """Splats dropped by the bounded spill tiers, summed over the last
+        frame's column launches and their group-axis chunks (the
+        univariate interactive convention; with one launch per frame, the
+        reference's last-launch count)."""
         d = self._dropped_splats
         return 0 if d is None else int(d)
 

@@ -1,17 +1,21 @@
 """The Visualizer: loader, store, renderer, colormap, overlays and canvas.
 
-Counterpart of ``VisualizerBase`` in ``topsy_tpu/visualizer.py`` for the
-univariate mode (EXPORT and interactive frames) and the surface mode
-(EXPORT frames): ``get_sph_image``, ``get_sph_presentation_image``,
-``get_presentation_image``, ``draw(reason, target=...)`` with its refine
-chain (a CHANGE or REFINE draw that leaves the progression incomplete
-requests a REFINE draw), ``rotate``, ``prevent_sph_rendering`` and the
-``render_mode`` / ``scale`` / ``rotation_matrix`` / ``position_offset`` /
-``quantity_name`` properties.  The device is explicit: ``device="cuda"`` (the default) needs
-a GPU and raises without one; tests pass ``"cpu"``.  The canvas and
-overlays are the port's copies of the reference's classes; the colorbar
-(which needs matplotlib) is built on first use.  ``OffscreenCanvas`` and
-``DrawReason`` are re-exported here for callers of the port.
+Counterpart of ``VisualizerBase`` in ``topsy_tpu/visualizer.py`` for every
+render mode on one device (``univariate``, ``bivariate``, ``rgb``,
+``rgb-hdr`` and ``surface``, each in EXPORT and interactive frames, and
+periodic tiling): ``get_sph_image``, ``get_sph_presentation_image``,
+``get_presentation_image``, ``get_depth_image`` (the double-click pick),
+``draw(reason, target=...)`` with its refine chain (a CHANGE or REFINE
+draw that leaves the progression incomplete requests a REFINE draw),
+``rotate``, ``prevent_sph_rendering``, the mode switch with its canvas
+capability check and its revert on failure, ``canvas_format`` (float16
+presentation for ``rgb-hdr``) and the ``render_mode`` / ``scale`` /
+``rotation_matrix`` / ``position_offset`` / ``quantity_name`` properties.
+The device is explicit: ``device="cuda"`` (the default) needs a GPU and
+raises without one; tests pass ``"cpu"``.  The canvas and overlays are the
+port's copies of the reference's classes; the colorbar (which needs
+matplotlib) is built on first use.  ``OffscreenCanvas`` and ``DrawReason``
+are re-exported here for callers of the port.
 """
 
 from __future__ import annotations
@@ -31,10 +35,12 @@ from .drawreason import DrawReason
 from .loaders import AbstractDataLoader, TestDataLoader
 from .overlays.scalebar import ScalebarOverlay
 from .overlays.text import TextOverlay
-from .render import sph, surface
+from .render import periodic, sph, surface
 from .render.store import ParticleStore
 
 logger = logging.getLogger(__name__)
+
+VALID_RENDER_MODES = ("univariate", "bivariate", "rgb", "rgb-hdr", "surface")
 
 
 def resolve_device(device) -> torch.device:
@@ -58,10 +64,11 @@ class VisualizerBase:
                  canvas_class=None,
                  render_mode="univariate",
                  device="cuda"):
+        if render_mode is None:
+            render_mode = "univariate"
         self._validate_render_mode(render_mode)
-        self._render_mode = render_mode or "univariate"
-        if periodic_tiling:
-            raise NotImplementedError("periodic tiling is ROADMAP item M12")
+        self._render_mode = render_mode
+        self._periodic_tiling = periodic_tiling
         self.device = resolve_device(device)
         self._render_resolution = render_resolution
         self._colorbar = None
@@ -80,6 +87,7 @@ class VisualizerBase:
         self.data_loader: AbstractDataLoader = data_loader_class(
             *data_loader_args, **(data_loader_kwargs or {}))
         self.store = ParticleStore(self.data_loader, device=self.device)
+        self.periodicity_scale = self.data_loader.get_periodicity_scale()
 
         self._initialize_overlays()
         self._initialize_sph_and_colormap_and_bar(colormap_name)
@@ -92,28 +100,37 @@ class VisualizerBase:
         self._scalebar = ScalebarOverlay(self)
 
     @staticmethod
-    def _validate_render_mode(render_mode):
-        if render_mode not in (None, "univariate", "surface"):
-            raise NotImplementedError(
-                f"render_mode {render_mode!r}: the PyTorch port renders "
-                "'univariate' and 'surface' only (bivariate and RGB are "
-                "ROADMAP item M10)")
-
-    @staticmethod
     def _renderer_class_for_mode(render_mode):
+        if render_mode in ("rgb", "rgb-hdr"):
+            return sph.RGBSPHRenderer
         if render_mode == "surface":
             return surface.SurfaceSPHRenderer
         return sph.SPHRenderer
 
     def _colormap_parameters_for_mode(self, render_mode):
         params = {"weighted_average": self.quantity_name is not None}
-        if render_mode == "surface":
+        if render_mode == "rgb":
+            params.update({"type": "rgb", "hdr": False, "log": True})
+        elif render_mode == "rgb-hdr":
+            params.update({"type": "rgb", "hdr": True, "log": True})
+        elif render_mode == "bivariate":
+            params.update({"type": "bivariate"})
+        elif render_mode == "surface":
             params.update({"type": "surface"})
         else:
             params.update({"type": "density"})
         return params
 
     def _initialize_sph_and_colormap_and_bar(self, colormap_name=None):
+        # a canvas that cannot present the mode's format fails the switch
+        # here, before anything is built (``_update_render_mode`` reverts)
+        fmt = self.canvas_format
+        supported = self.canvas.supported_formats()
+        if fmt not in supported:
+            raise ValueError(
+                f"canvas {type(self.canvas).__name__} cannot present "
+                f"{fmt!r} (supports {supported}); render mode "
+                f"{self._render_mode!r} unavailable")
         if self._sph is not None:
             old_rotation = self._sph.rotation_matrix
             old_position = self._sph.position_offset
@@ -121,9 +138,14 @@ class VisualizerBase:
         else:
             old_rotation = old_position = old_scale = None
         progression = self.data_loader.get_render_progression()
-        renderer_class = self._renderer_class_for_mode(self._render_mode)
-        self._sph = renderer_class(self.store, progression,
-                                   self._render_resolution)
+        if self._periodic_tiling:
+            self._sph = periodic.PeriodicSPHRenderer(
+                self.store, progression, self._render_resolution,
+                self.periodicity_scale)
+        else:
+            renderer_class = self._renderer_class_for_mode(self._render_mode)
+            self._sph = renderer_class(self.store, progression,
+                                       self._render_resolution)
         self.reset_view(rotation_matrix=old_rotation,
                         position_offset=old_position, scale=old_scale)
         self.invalidate()
@@ -146,8 +168,9 @@ class VisualizerBase:
             self._colormap.autorange(self._sph.get_image_device())
         self._colorbar = None
         self._colorbar_wanted = (
-            params["type"] != "surface"
-            or bool(params.get("weighted_average")))
+            params["type"] not in ("rgb", "surface")
+            or (params["type"] == "surface"
+                and bool(params.get("weighted_average"))))
 
     def _get_colorbar_label(self):
         label = self.data_loader.get_quantity_label(self.quantity_name)
@@ -179,10 +202,35 @@ class VisualizerBase:
     def render_mode(self, value):
         """Switch modes: a new renderer and colormap over the same store
         (the presort is reused)."""
-        self._validate_render_mode(value)
-        self._render_mode = value or "univariate"
-        self._initialize_sph_and_colormap_and_bar()
+        self._update_render_mode(value)
+
+    @staticmethod
+    def _validate_render_mode(render_mode):
+        if render_mode not in VALID_RENDER_MODES:
+            raise ValueError(f"Invalid render_mode '{render_mode}'. "
+                             f"Valid modes: {set(VALID_RENDER_MODES)}")
+
+    def _update_render_mode(self, new_render_mode, revert_on_failure=True):
+        """A failed switch (a canvas that cannot present the mode) reverts
+        to the previous mode and re-raises."""
+        self._validate_render_mode(new_render_mode)
+        old_render_mode = self._render_mode
+        self._render_mode = new_render_mode
+        try:
+            self._initialize_sph_and_colormap_and_bar()
+        except Exception:
+            if revert_on_failure:
+                logger.error("Failed to switch to render mode %r; reverting "
+                             "to %r", new_render_mode, old_render_mode)
+                self._update_render_mode(old_render_mode,
+                                         revert_on_failure=False)
+            raise
         self.invalidate(DrawReason.CHANGE)
+
+    @property
+    def canvas_format(self) -> str:
+        return ("rgba16float" if self._render_mode.endswith("hdr")
+                else "rgba8unorm")
 
     @property
     def rotation_matrix(self):
@@ -267,8 +315,9 @@ class VisualizerBase:
         self._sph.render(draw_reason)
 
     def draw(self, reason, target=None):
-        """Render (if needed) and compose the presentation frame (RGBA
-        uint8), stored as ``self.last_frame`` and handed to the canvas.
+        """Render (if needed) and compose the presentation frame (RGBA,
+        uint8 or float16 for ``rgb-hdr``), stored as ``self.last_frame``
+        and handed to the canvas.
         ``target``: optional (width, height), defaults to the canvas size.
         An interactive draw that leaves the progression incomplete requests
         a REFINE draw."""
@@ -306,6 +355,8 @@ class VisualizerBase:
             self._scalebar.composite(img)
         if self.show_status:
             self._status.composite(img)
+        if self.canvas_format == "rgba16float":
+            return img.astype(np.float16)
         return (np.clip(img, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
 
     # -- image access ----------------------------------------------------------------
@@ -317,16 +368,25 @@ class VisualizerBase:
             self._sph.get_image_device())
 
     def get_sph_presentation_image(self) -> np.ndarray:
-        """Colormapped SPH image, no overlays, (res, res, 4) uint8."""
+        """Colormapped SPH image, no overlays, (res, res, 4): uint8, or
+        float16 for ``rgb-hdr``."""
         self.render_sph(DrawReason.EXPORT)
         rgba = self._colormap.to_rgba(self._sph.get_output_image(),
                                       self._sph.last_render_mass_scale)
         rgba = rgba.cpu().numpy()
+        if self.canvas_format == "rgba16float":
+            return rgba.astype(np.float16)
         return (np.clip(rgba, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
 
     def get_presentation_image(self, resolution=(640, 480)) -> np.ndarray:
         """Full presentation frame with overlays at the given size."""
         return self.draw(DrawReason.EXPORT, target=resolution)
+
+    def get_depth_image(self, depth_renderer_reason=DrawReason.CHANGE
+                        ) -> np.ndarray:
+        """Mass-weighted mean depth (world units) of the current view, NaN
+        on empty pixels: the canvas's double-click pick."""
+        return self._sph.get_depth_image(depth_renderer_reason)
 
     @contextmanager
     def prevent_sph_rendering(self):
