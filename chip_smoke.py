@@ -7,38 +7,46 @@ kernel K1, the CUDA deposit kernel K2 and the CUDA z-buffer kernel K3, into
 build/torch_kernels/; the host presort's native library into
 build/torch_native/), builds the 2^24-particle synthetic snapshot at
 1024x1024 with the (density, mass * quantity) channels — the scene bench.py
-renders — through ``Visualizer(..., device="cuda")``, holds K1 and K2
-against their plain PyTorch versions on the card at the shapes the EXPORT
-path gives them (every piece of the renderer's piece loop), drives the
-univariate EXPORT path (warm-up and timed frames, the SPH image and the
-presentation image) and checks the image against the port's scatter ground
-truth.  On the same Visualizer it drives the interactive path (phase I):
-K1 and K2 against their plain versions, each call timed alone beside its
-plain version and its bound, on two column slices (one layout quantum
-wide, and three, not a power of two) and on the CHANGE frame's own
-full-width column launch (both group-axis pieces, the raised spill
-budgets), five views after two
-warm-ups, each a CHANGE draw and the REFINE draws that complete it, timed
-by the frame clock from the first launch to the end of the presentation
-readback, the completed image against the EXPORT image of its view, and a
-zoomed-out view where the giant layer runs, against the scatter truth and its
-EXPORT image.  On the same store it drives the other additive modes
-(phases M1-M4): RGB and RGB-HDR (K1 with three value rows and K2 at C = 3
-held on every call of the first piece, EXPORT frames, each band against
-the scatter truth, both presentations), bivariate (EXPORT frames, the 2-D
-LUT presentation), the depth pick (its CHANGE launch with K1's depth
-channel and K2 at C = 3 held on every call, the picked depth against the
-scatter truth) and periodic tiling (EXPORT frames, the lattice composite
+renders — through ``Visualizer(..., device="cuda")``, whose store presorts
+on the card.  Phase P times that device presort (and its decimation-mip
+tier) beside the host presort, checks the layout's invariants on the card
+and the mip tier as exactly its parent's first columns, and fails if the
+scene took the host fallback.  It holds K1 and K2 against their plain
+PyTorch versions on the card at the shapes the EXPORT path gives them
+(every piece of the renderer's piece loop), drives the univariate EXPORT
+path (warm-up and timed frames, the SPH image and the presentation image)
+and checks the image against the port's scatter ground truth.  Phase D
+drives bench.py's own path, ``TestDataDeviceLoader`` through a second
+Visualizer: the time to its first EXPORT image, its EXPORT frames and the
+image against the scatter truth.  On the scene's Visualizer it drives the
+interactive path (phase I): K1 and K2 against their plain versions, each
+call timed alone beside its plain version and its bound, on column slices
+of the main layout (one quantum wide, three, the REFINE launch above the
+mip's columns, the full width) and on the mip tier's CHANGE launch; seven
+views, each a CHANGE draw (the first on the mip tier, held as a fair
+subsample of its view's EXPORT image) and the REFINE draws that complete
+it, timed by the frame clock from the first launch to the end of the
+presentation readback, the completed images against the EXPORT image of
+their view, and a zoomed-out view where the giant layer runs, against the
+scatter truth and its EXPORT image.  On the same store it drives the other
+additive modes (phases M1-M4): RGB and RGB-HDR (K1 with three value rows
+and K2 at C = 3 held on every call of the first piece, EXPORT frames, each
+band against the scatter truth, both presentations), bivariate (EXPORT
+frames, the 2-D LUT presentation), the depth pick (one CHANGE frame of the
+tier its progression picks, K1's depth channel and K2 at C = 3 held on
+every call of its launch, the picked depth against the scatter truth of the
+same particles) and periodic tiling (EXPORT frames, the lattice composite
 against a float64 one).  Then it switches the same Visualizer to the
 surface mode and, at the default density cut and at the lowest one (every
 particle, much of the image covered), holds K3 bit-identical to its plain
-version on every K3 call of one surface EXPORT frame (plus forced
-stragglers), drives the surface EXPORT path and checks its (value, depth)
-image against the port's scatter-max ground truth; and drives the
-interactive surface (phase SI: K3 on column slices one and three quanta
-wide and on the CHANGE frame's own launch, five views timed by the frame
-clock, the completed image against EXPORT, and a zoomed-out view with the
-surface giant layer against the scatter truth).  It prints:
+version on every K3 call of the main layout's full-width column launch
+(plus forced stragglers), drives the surface EXPORT path (each tier's own
+columns) and checks its (value, depth) image against the port's
+scatter-max ground truth; and drives the interactive surface (phase SI:
+K3 on main-layout slices, its REFINE launch and the mip tier's CHANGE
+launch, five views timed by the frame clock, the completed image against
+EXPORT, and a zoomed-out view with the surface giant layer against the
+scatter truth).  It prints:
 
 * the card's name and power limit (nvidia-smi);
 * ptxas' registers, stack and spills for every K2 and K3 kernel
@@ -52,8 +60,12 @@ surface giant layer against the scatter truth).  It prints:
   particle) pairs it evaluates against the fragments and hits its bound
   counts, and its global atomics; each timed K3 call restarts from its own
   starting atlas;
-* per interactive frame its time, column ranges, dropped splats and mass
-  scale;
+* phase P's device and host presort times, the layout's runs and tiers
+  with their real counts; phase D's time to the first image and EXPORT
+  frame;
+* per interactive frame its time, column ranges, dropped splats, mass
+  scale and tier (deepest mip 0, the main layout last), and per view its
+  frames to completion;
 * one ``{"kernels": [...]}`` JSON line: per kernel its launches on each
   path that runs it (each path's counts zeroed just before it and read
   just after), its largest difference from the plain version, the
@@ -72,6 +84,7 @@ result; it also exits nonzero when no CUDA device is available.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -198,13 +211,22 @@ def feed_args(vis, piece, sph=None):
     from topsy_tpu_torch.ops import splat_atlas
     sph = vis._sph if sph is None else sph
     store = vis.store
+    fields, values_cm, gb, mask = tier_arrays(store, sph, store.main_tier)
     return splat_atlas.feed_call(
-        store.presorted_fields(),
-        store.presorted_values_cm_for(sph._buffer_name),
-        sph._matrix().astype(np.float32), RESOLUTION, np.float32(sph.scale),
-        store.presorted_group_buckets, mask=sph._feed_cull_mask(),
+        fields, values_cm, sph._matrix().astype(np.float32), RESOLUTION,
+        np.float32(sph.scale), gb, mask=mask,
         depth_channel=sph._depth_channel, piece=piece,
         bucket_thresh=sph._giant_bucket)
+
+
+def tier_arrays(store, sph, tier):
+    """(fields, channel-major values, group buckets, cull mask) of the
+    renderer ``sph``'s buffer over ``tier``: the main layout
+    (``store.main_tier``) or a decimation mip
+    (``store.ensure_column_mips()[i]``), exactly as its launches read
+    them."""
+    return (tier.fields(), tier.values_cm_for(sph._buffer_name),
+            tier.group_buckets, sph._feed_cull_mask(tier))
 
 
 def k2_calls(feed_out, G, atlas_rows, atlas_cols):
@@ -598,20 +620,34 @@ def interactive_times(times):
             for i, k in enumerate(("ms", "plain_ms", "bound_ms"))}
 
 
+FRAME_FIELDS = "(ms by the frame clock, column ranges, dropped, mass scale, tier)"
+
+
 def frame_record(sph):
-    """(frame ms by the frame clock, column ranges, dropped, mass scale) of
-    the renderer's last interactive frame, after its presentation."""
+    """(frame ms by the frame clock, column ranges, dropped, mass scale,
+    tier) of the renderer's last interactive frame, after its
+    presentation; the tier is the progression's ``last_block_tier``
+    (deepest mip 0, the main layout last)."""
     return (sph.frame_clock.seconds() * 1e3, list(sph.last_column_ranges),
-            sph.last_dropped_splats, sph.last_render_mass_scale)
+            sph.last_dropped_splats, sph.last_render_mass_scale,
+            sph.render_progression.last_block_tier)
 
 
-def drive_view(vis, max_frames=64):
+def show_frames(frames):
+    return [(round(f[0], 3),) + tuple(f[1:]) for f in frames]
+
+
+def drive_view(vis, max_frames=64, first_image=None):
     """A CHANGE draw, then REFINE draws until the progression is complete:
-    the user's interactive path.  Returns each frame's ``frame_record``."""
+    the user's interactive path.  Returns each frame's ``frame_record``;
+    ``first_image`` (a list) receives the first frame's photometrically
+    scaled density image."""
     from topsy_tpu_torch.visualizer import DrawReason
     sph = vis._sph
     vis.draw(DrawReason.CHANGE)
     frames = [frame_record(sph)]
+    if first_image is not None:
+        first_image.append(sph.get_image()[..., 0].astype("float64"))
     while sph.needs_refine():
         check(len(frames) < max_frames, f"no completion in {max_frames} "
               "frames")
@@ -643,7 +679,8 @@ def against_export(vis, tag):
     """The completed interactive image of the current view against the
     EXPORT image of the same view: the mass scale within 1e-6 of 1,
     correlation > 0.9999, and the density sums within rel 1e-4 once each
-    side's dropped splats are counted.  The EXPORT pieces keep the
+    side's dropped splats are counted; returns the EXPORT density image.
+    The EXPORT pieces keep the
     reference's spill budget and the interactive launch a 4x one, so they
     drop different numbers of splats; when every particle of the snapshot
     has the same mass (checked), each deposited splat adds the same to the
@@ -676,6 +713,275 @@ def against_export(vis, tag):
     check(corr > 0.9999, f"{tag}: correlation {corr} <= 0.9999")
     check(abs(rel - counted) <= 1e-4, f"{tag}: density sum rel diff {rel} "
           f"is not the dropped splats' {counted} within 1e-4")
+    return im_e
+
+
+def cuda_ms(fn):
+    """(CUDA-event ms, host wall ms, result) of one call of ``fn`` on the
+    current stream, synchronised before and after."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3, out
+
+
+def check_layout(tag, layout, pos_smooth, complete=True):
+    """The presort layout's invariants on the card (tests/
+    test_morton_device.py): each particle once (each of the snapshot's, or
+    with ``complete=False``, a mip tier's, none twice), pads carry the
+    sentinel, real slots form each group's prefix, ``real_per_column``, buckets
+    non-decreasing and changing only at ``run_quantum`` multiples, buckets
+    bounding h (below-edge share < 1e-3), the within-group shuffle in
+    effect.  Returns (runs, share below the bucket edge, ascending share)."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch.ops.morton import DELTA_OCTAVE
+    n, G = layout.n_real, layout.pad_group
+    gidx = layout.gidx.long()
+    real = gidx < n
+    counts = torch.bincount(gidx[real], minlength=n)
+    once = (counts == 1) if complete else (counts <= 1)
+    check(counts.numel() == n and bool(once.all()),
+          f"{tag}: the real slots do not hold each particle once")
+    check(bool((gidx[~real] == n).all()), f"{tag}: a pad lacks the sentinel")
+    r2 = real.reshape(-1, G)
+    check(bool((r2[:, :-1] >= r2[:, 1:]).all()),
+          f"{tag}: real slots are not group prefixes")
+    check(np.array_equal(layout.real_per_column,
+                         r2.sum(dim=0).cpu().numpy()),
+          f"{tag}: real_per_column is wrong")
+    b = layout.buckets.long()
+    check(bool((b[1:] >= b[:-1]).all()), f"{tag}: buckets decrease")
+    change = torch.nonzero(b[1:] != b[:-1]).flatten() + 1
+    check(bool((change % layout.run_quantum == 0).all()),
+          f"{tag}: a bucket changes off a run_quantum multiple")
+    h = pos_smooth[gidx[real], 3].double()
+    br = b[real].double()
+    check(bool((h <= torch.exp2((br + 1.0) * DELTA_OCTAVE)
+                * (1 + 1e-5)).all()), f"{tag}: a bucket's upper edge is "
+          "below its particle's h")
+    below = float((h < torch.exp2(br * DELTA_OCTAVE) * (1 - 1e-5))
+                  .double().mean())
+    check(below < 1e-3, f"{tag}: {below} of h below their bucket's edge")
+    g_id = torch.arange(layout.n_out, device=gidx.device) // G
+    same = real[1:] & real[:-1] & (g_id[1:] == g_id[:-1])
+    asc = float(((gidx[1:] - gidx[:-1]) > 0)[same].double().mean())
+    check(asc < 0.9, f"{tag}: within-group sources ascend on {asc}: no "
+          "shuffle")
+    return int(torch.unique(b[real]).numel()), below, asc
+
+
+def layout_spills(vis, layouts):
+    """K1's spilled particles (those outside their group's fit window, which
+    the spill tiers then deposit) at the scene's view, summed over the
+    EXPORT pieces, for each gather layout of ``layouts`` ({name: layout}):
+    a measure of how compact the layout's groups are on screen."""
+    import numpy as np
+    from topsy_tpu_torch import config, convert
+    from topsy_tpu_torch.ops import splat_atlas, splat_feed
+    sph, store = vis._sph, vis.store
+    values = store.values_for(sph._buffer_name)
+    out = {}
+    for name, lay in layouts.items():
+        G = lay.pad_group
+        ng = lay.n_out // G
+        fields = tuple(f.reshape(ng, G) for f in convert.presorted_positions(
+            lay, store.pos_smooth))
+        vcm = convert.presorted_values_cm(lay, values)
+        gb = lay.buckets.reshape(ng, G)[:, 0].contiguous()
+        piece_g = min(ng, config.SPLAT_FEED_LAUNCH_CAP // G)
+        total = 0
+        for g0 in range(0, ng, piece_g):
+            fargs, fkw = splat_atlas.feed_call(
+                fields, vcm, sph._matrix().astype(np.float32), RESOLUTION,
+                np.float32(sph.scale), gb,
+                piece=(g0, min(piece_g, ng - g0)),
+                bucket_thresh=sph._giant_bucket)
+            total += int(splat_feed.splat_feed(*fargs, **fkw)[9].sum())
+        out[name] = total
+    return out
+
+
+def phase_presort(vis):
+    """Phase P, the presort built on the card, on the scene's positions
+    there: the device build (CUDA events, median of 3 after 1 warm-up)
+    beside the host presort (wall time, one run after its native library is
+    built), the layout's invariants on the card, the mip tier as exactly
+    its parent's first min_slice_width columns.  Fails if the scene's store
+    took the host fallback.  Returns a summary dict."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch import convert, native
+    from topsy_tpu_torch.ops import morton, morton_device
+    t_all = time.perf_counter()
+    store = vis.store
+    layout = store.presorted_layout
+    check(isinstance(layout, morton_device.DevicePresortedLayout),
+          f"the scene's store holds a {type(layout).__name__}: the host "
+          "presort fallback ran")
+    ps, n = store.pos_smooth, store.n
+    build = lambda: morton_device.build_presorted_device(ps, n_real=n)
+    build()                                          # warm-up
+    runs = [cuda_ms(build) for _ in range(3)]
+    dev_ms = [r[0] for r in runs]
+    check(all(r[2] is not None for r in runs), "the device build fell back")
+    again = runs[-1][2]
+    check(again.n_out == layout.n_out and np.array_equal(
+        again.real_per_column, layout.real_per_column),
+          "a rebuild differs in its structure")
+    del runs, again
+    # the build's three stages alone (CUDA events), as build_presorted_device
+    # runs them
+    n_cap = 1 << (max(int(ps.shape[0]), 1) - 1).bit_length()
+    ps_cap = ps if ps.shape[0] == n_cap else torch.cat(
+        [ps, ps.new_full((n_cap - ps.shape[0], 4), morton.PAD_POS)])
+    sort_ms, _, (b_sorted, perm) = cuda_ms(
+        lambda: morton_device._sort_stage(ps_cap, n))
+    run_ms, _, (os_r, bucket_r, len_r, n_out_t, n_runs_t) = cuda_ms(
+        lambda: morton_device._run_stage(b_sorted, n, layout.run_quantum,
+                                         4096))
+    slot_ms, _, _ = cuda_ms(lambda: morton_device._slot_stage(
+        perm, os_r, bucket_r, len_r, n_real=n, n_out=int(n_out_t),
+        n_runs=int(n_runs_t), pad_group=layout.pad_group, seed=1337))
+    stages = dict(sort_ms=sort_ms, run_ms=run_ms, slot_ms=slot_ms)
+    del ps_cap, b_sorted, perm, os_r, bucket_r, len_r
+    native_ok = native._load() is not None
+    ps_host = vis.data_loader.get_pos_smooth().astype(np.float32)
+    t0 = time.perf_counter()
+    host = morton.build_presorted(ps_host)
+    host_s = time.perf_counter() - t0
+    spilled = layout_spills(vis, {
+        "device": layout,
+        "host": convert.device_layout_from_host(host, ps.device)})
+    n_runs, below, asc = check_layout("P main layout", layout, ps)
+    log(f"phase P: device presort of {n} particles (the scene's positions on"
+        f" the card): median {statistics.median(dev_ms):.3f} ms (CUDA events;"
+        f" runs {[round(t, 3) for t in dev_ms]}); host presort "
+        f"(ops/morton.build_presorted, {'native g++' if native_ok else 'numpy'}"
+        f") {host_s:.3f} s wall; n_out {layout.n_out} (host layout "
+        f"{host.n_out}), {n_runs} runs, run_quantum {layout.run_quantum}, "
+        f"groups {layout.n_out // layout.pad_group}; stages alone: key sort "
+        f"{sort_ms:.3f} ms, runs {run_ms:.3f} ms, slots and shuffle "
+        f"{slot_ms:.3f} ms; invariants held on the "
+        f"card (h below its bucket's edge on {below:.3e}, within-group "
+        f"sources ascending on {asc:.4f}); K1's spilled particles at the "
+        f"scene's view over the device layout {spilled['device']}, over the "
+        f"host layout {spilled['host']}")
+    del ps_host, host
+
+    # the decimation-mip chain, each tier exactly its parent's prefix
+    # columns
+    mip_ms = [cuda_ms(lambda: morton_device.build_mip_layout(layout, ps))[0]
+              for _ in range(4)][1:]
+    tiers = store.ensure_column_mips()
+    check(len(tiers) >= 1, "the scene has no decimation-mip tier")
+    parent = layout
+    for i, tier in reversed(list(enumerate(tiers))):
+        mip = tier.layout
+        w = morton.min_slice_width(parent)
+        pg = parent.gidx.reshape(-1, parent.pad_group)[:, :w].reshape(-1)
+        expect = torch.sort(pg[pg < n]).values
+        got = torch.sort(mip.gidx[mip.gidx < n]).values
+        check(torch.equal(got, expect), f"mip tier {i} is not its parent's "
+              f"first {w} columns")
+        t_runs, _, _ = check_layout(f"P mip tier {i}", mip, ps,
+                                    complete=False)
+        log(f"phase P mip tier {i}: {int(mip.real_per_column.sum())} real "
+            f"particles (its parent's first {w} of {parent.pad_group} "
+            f"columns, exactly), n_out {mip.n_out}, {t_runs} runs, groups "
+            f"{mip.n_out // mip.pad_group}, slice floor "
+            f"{int(mip.real_per_column[:morton.min_slice_width(mip)].sum())}")
+        parent = mip
+    log(f"phase P: tiers {len(tiers)} (deepest first, real counts "
+        f"{[int(t.layout.real_per_column.sum()) for t in tiers]}); main "
+        f"layout {int(layout.real_per_column.sum())} real; build_mip_layout "
+        f"median {statistics.median(mip_ms):.3f} ms (CUDA events; runs "
+        f"{[round(t, 3) for t in mip_ms]}); {time.perf_counter() - t_all:.1f}"
+        " s")
+    return dict(device_presort_ms=dev_ms, **stages, host_presort_s=host_s,
+                spilled=spilled,
+                native=native_ok, n_out=layout.n_out, runs=n_runs,
+                mip_ms=mip_ms,
+                tier_reals=[int(t.layout.real_per_column.sum())
+                            for t in tiers])
+
+
+def phase_device_loader(dev, scene_sph):
+    """Phase D, bench.py's path: ``Visualizer`` over ``TestDataDeviceLoader
+    (2**24, seed=1337)`` on the card at 1024^2.  Times the loader, the store
+    and presort and the first EXPORT frame to the first image (host wall,
+    synchronised), then EXPORT frames (median of 5 after 2 warm-ups), then
+    the scene's (``scene_sph``) and its own EXPORT frames alternately, both
+    held in memory (scene, device loader, scene, device loader: a gap that
+    follows the loader is its layout's, one that follows the order is the
+    card's), and holds the image against its scatter truth (density sum rel
+    1e-2, correlation > 0.999).  Returns (launches during the frames, a summary
+    dict)."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch.loaders import TestDataDeviceLoader
+    from topsy_tpu_torch.ops import morton_device, splat
+    from topsy_tpu_torch.visualizer import OffscreenCanvas, Visualizer
+    t0 = time.perf_counter()
+    loader = TestDataDeviceLoader(N_PARTICLES, seed=1337, device=dev)
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t0
+    del loader
+    t0 = time.perf_counter()
+    vis = Visualizer(data_loader_class=TestDataDeviceLoader,
+                     data_loader_args=(N_PARTICLES,),
+                     data_loader_kwargs={"seed": 1337, "device": dev},
+                     render_resolution=RESOLUTION,
+                     canvas_class=OffscreenCanvas, device=dev)
+    raw = vis._sph.get_image()
+    first_s = time.perf_counter() - t0
+    store, sph = vis.store, vis._sph
+    check(isinstance(store.presorted_layout,
+                     morton_device.DevicePresortedLayout),
+          "the device loader's store took the host presort fallback")
+    check(store.pos_smooth.data_ptr()
+          == vis.data_loader.device_arrays()["pos_smooth"].data_ptr(),
+          "the store copied the device loader's positions")
+    reset_counts()
+    frame_ms, _ = export_frame_ms(sph)
+    launches = read_counts("device loader EXPORT", ("splat_feed",
+                                                    "accumulate_groups"))
+    alternate = [(who, statistics.median(export_frame_ms(s)[0])) for who, s
+                 in (("scene", scene_sph), ("device loader", sph)) * 2]
+    raw = sph.get_image()
+    check(raw.shape == (RESOLUTION, RESOLUTION, 2)
+          and np.isfinite(raw).all(), f"device loader image {raw.shape} "
+          "not finite")
+    truth = splat.splat_scatter(
+        store.pos_smooth, store.values_for(sph._buffer_name),
+        sph._matrix().astype(np.float32), RESOLUTION, np.float32(sph.scale))
+    truth = truth[..., 0].cpu().numpy().astype(np.float64)
+    den = raw[..., 0].astype(np.float64)
+    rel = abs(den.sum() / truth.sum() - 1.0)
+    corr = float(np.corrcoef(den.ravel(), truth.ravel())[0, 1])
+    med = statistics.median(frame_ms)
+    log(f"phase D: TestDataDeviceLoader({N_PARTICLES}, seed=1337) on the "
+        f"card: loader alone {loader_s:.3f} s; Visualizer to the first "
+        f"EXPORT image (loader, store, device presort, first frame and "
+        f"autorange, readback) {first_s:.3f} s wall; n_out "
+        f"{store.n_presorted}; EXPORT {FRAMES} frames, median {med:.3f} "
+        f"ms/frame (frames {[round(t, 3) for t in frame_ms]}), "
+        f"{N_PARTICLES / (med / 1e3):.6e} splats/s, last_dropped_splats "
+        f"{sph.last_dropped_splats}; against splat_scatter: density sum rel "
+        f"diff {rel:.3e}, corr {corr:.6f}; launches {launches}")
+    log("phase D: EXPORT frame medians, alternately, both Visualizers held: "
+        + ", ".join(f"{who} {ms:.3f} ms" for who, ms in alternate))
+    check(rel <= 1e-2, f"D: density sum rel diff {rel} > 1e-2")
+    check(corr > 0.999, f"D: density correlation {corr} <= 0.999")
+    return launches, dict(loader_s=loader_s, first_image_s=first_s,
+                          frame_ms=frame_ms, alternate=alternate, rel=rel,
+                          corr=corr)
 
 
 def phase_interactive(vis):
@@ -700,24 +1006,31 @@ def phase_interactive(vis):
         splat.default_pyramid(RESOLUTION))
     summary = {}
 
-    # ---- I1: K1 and K2 on column slices of one quantum, of three, and on
-    # the CHANGE frame's own full-width launch, each call timed alone
+    # ---- I1: K1 and K2 on column slices of one quantum and of three, on
+    # the REFINE launch of the main layout (its columns above the mip
+    # tier's), on its full width, and on the CHANGE launch of the mip tier
+    # (all of its columns), each call timed alone
     q = min_slice_width(store.presorted_layout)
     pad_group = store.presorted_layout.pad_group
+    tiers = store.ensure_column_mips()
+    check(len(tiers) >= 1, "the scene has no decimation-mip tier")
     matrix = sph._matrix().astype(np.float32)
     scale = np.float32(sph.scale)
     feed_err = accum_err = 0.0
-    # per call "w<width>_p<piece>[_<shape>]": (ms, plain ms, bound ms)
+    # per call "[tier<i>_]w<width>_p<piece>[_<shape>]": (ms, plain ms,
+    # bound ms)
     feed_t, accum_t = {}, {}
-    for col0, width in ((0, q), (q, 3 * q), (0, pad_group)):
-        sliced, vals, gb, msk, pieces, kw = column_launches(
-            store.presorted_fields(),
-            store.presorted_values_cm_for(sph._buffer_name),
-            store.presorted_group_buckets, sph._feed_cull_mask(), col0, width)
+    launches_i1 = [(None, 0, q), (None, q, 3 * q), (None, q, pad_group - q),
+                   (None, 0, pad_group), (0, 0, pad_group)]
+    for ti, col0, width in launches_i1:
+        tier = store.main_tier if ti is None else tiers[ti]
+        src = tier_arrays(store, sph, tier)
+        sliced, vals, gb, msk, pieces, kw = column_launches(*src, col0, width)
         drops, kernels_ms = [], 0.0
+        name = "main" if ti is None else f"tier {ti}"
         for i, piece in enumerate(pieces):
-            label = f"I1 width {width} piece {piece}"
-            key = f"w{width}_p{i}"
+            label = f"I1 {name} [{col0}, {col0 + width}) piece {piece}"
+            key = ("" if ti is None else f"tier{ti}_") + f"w{width}_p{i}"
             fargs, fkw = splat_atlas.feed_call(
                 sliced, vals, matrix, RESOLUTION, scale, gb, mask=msk,
                 piece=piece, bucket_thresh=sph._giant_bucket)
@@ -757,57 +1070,89 @@ def phase_interactive(vis):
                 f" of the atlas maximum; dropped {drops[-1]}; {timing}")
             del out_k, main_kw, t2_kw, t3_kw
         launch_ms = timed_ms(lambda: _render_block_columns_fields(
-            store.presorted_fields(),
-            store.presorted_values_cm_for(sph._buffer_name),
-            store.presorted_group_buckets, sph._feed_cull_mask(), matrix,
-            scale, col0, int(sph._giant_bucket), resolution=RESOLUTION,
-            width=width, depth_channel=False), 5)
-        log(f"phase I1 slice [{col0}, {col0 + width}): width {width} (power of"
-            f" two: {width & (width - 1) == 0}), n_groups {sliced[0].shape[0]}"
-            f", pieces {pieces}, dropped {drops}; whole column launch "
-            f"{launch_ms:.3f} ms, of which the kernels alone {kernels_ms:.3f}"
-            " ms")
-        summary[f"launch_ms_width_{width}"] = launch_ms
-        summary[f"kernels_ms_width_{width}"] = kernels_ms
+            *src, matrix, scale, col0, int(sph._giant_bucket),
+            resolution=RESOLUTION, width=width, depth_channel=False), 5)
+        log(f"phase I1 {name} slice [{col0}, {col0 + width}): width {width} "
+            f"(power of two: {width & (width - 1) == 0}), n_groups "
+            f"{sliced[0].shape[0]}, pieces {pieces}, dropped {drops}; whole "
+            f"column launch {launch_ms:.3f} ms, of which the kernels alone "
+            f"{kernels_ms:.3f} ms")
+        tag = ("" if ti is None else f"tier{ti}_") + f"width_{width}"
+        summary[f"launch_ms_{tag}"] = launch_ms
+        summary[f"kernels_ms_{tag}"] = kernels_ms
     check((3 * q) & (3 * q - 1), "the 3-quantum slice is a power of two")
     summary.update(feed_t=feed_t, accum_t=accum_t)
 
     # ---- I2: interactive views, each a CHANGE draw then REFINE draws ------
-    reset_counts()
+    # the first view starts on the deepest mip tier (the recommendation
+    # starts at config.INITIAL_PARTICLES_TO_RENDER); later views render
+    # the tier the measured frame times afford
+    main_tier = len(tiers)
     change_ms, refine_ms, n_frames, all_frames = [], [], [], 0
+    first_tiers = []
     for v in range(2 + FRAMES):                  # two warm-up views
+        if v == 1:
+            # view 0's checks render EXPORT frames: the counts are the
+            # frames' of views 1 on
+            reset_counts()
         vis.rotate(0.0, 0.05)
-        frames = drive_view(vis)
+        first = []
+        frames = drive_view(vis, first_image=first if v == 0 else None)
         check(isinstance(sph.render_progression, RenderProgressionColumns),
               "CHANGE did not activate the columns progression")
-        all_frames += len(frames)
+        all_frames += len(frames) if v else 0
+        first_tiers.append(frames[0][4])
         if v >= 2:
             change_ms.append(frames[0][0])
             refine_ms += [f[0] for f in frames[1:]]
             n_frames.append(len(frames))
         log(f"phase I2 view {v}{' (warm-up)' if v < 2 else ''}: frames "
-            "(ms by the frame clock, column ranges, dropped, mass scale) "
-            f"{[(round(f[0], 3),) + f[1:] for f in frames]}")
+            f"{FRAME_FIELDS} {show_frames(frames)}")
+        if v == 0:
+            check(frames[0][4] == 0 and frames[0][3] > 1.0, "the first "
+                  f"CHANGE frame rendered tier {frames[0][4]} at mass scale "
+                  f"{frames[0][3]}, not the deepest mip")
+            check(len(frames) > 1 and frames[-1][4] == main_tier, "the "
+                  "REFINE frames did not reach the main layout")
+            # the completed tiered view against its EXPORT image, and its
+            # first (mip) frame as a fair subsample of it
+            im_e = against_export(vis, "I3 view 0 (mip-started)")
+            im0 = first[0]
+            rel0 = im0.sum() / im_e.sum() - 1.0
+            corr0 = float(np.corrcoef(im0.ravel(), im_e.ravel())[0, 1])
+            log(f"phase I3 view 0: its first frame (tier 0, mass scale "
+                f"{frames[0][3]!r}) against its view's EXPORT image: density"
+                f" sum rel diff {rel0:.6e}, corr {corr0:.6f}")
+            check(abs(rel0) <= 0.05, f"the mip frame's sum differs by {rel0}")
+            check(corr0 > 0.9, f"the mip frame's correlation {corr0} <= 0.9")
+            summary.update(mip_frame_rel=rel0, mip_frame_corr=corr0)
     launches = read_counts("interactive", ("splat_feed",
                                            "accumulate_groups"))
+    promoted = [v for v, t in enumerate(first_tiers) if t == main_tier]
     # the frame's two parts alone (CUDA events): the CHANGE render and the
     # presentation (colormap, fit to the canvas, readback)
     render_ms = timed_ms(lambda: sph.render(DrawReason.CHANGE), 5)
+    render_tier = sph.render_progression.last_block_tier
     present_ms = timed_ms(lambda: vis._compose_presentation(
         vis.canvas.width_physical, vis.canvas.height_physical), 5)
+    while sph.needs_refine():                   # complete the view again
+        sph.render(DrawReason.REFINE)
     summary.update(
         change_median_ms=statistics.median(change_ms),
         refine_median_ms=(statistics.median(refine_ms) if refine_ms
                           else None),
-        frames_to_completion=n_frames, render_ms=render_ms,
-        present_ms=present_ms)
+        frames_to_completion=n_frames, first_frame_tiers=first_tiers,
+        promoted_views=promoted, render_ms=render_ms, present_ms=present_ms)
     log(f"phase I2: {FRAMES} views; CHANGE frame median "
         f"{summary['change_median_ms']:.3f} ms (frames "
         f"{[round(t, 3) for t in change_ms]}); REFINE frames "
         f"{[round(t, 3) for t in refine_ms]}; frames to completion "
-        f"{n_frames}; launches during the views' {all_frames} frames "
-        f"{launches}; alone: CHANGE render {render_ms:.3f} ms, presentation "
-        f"{present_ms:.3f} ms")
+        f"{n_frames}; first frame's tier per view {first_tiers} (main "
+        f"layout {main_tier}; views the budget promoted to it: {promoted}); "
+        f"launches during the {all_frames} frames of views 1 on "
+        f"{launches}; alone: "
+        f"a CHANGE render (tier {render_tier}) {render_ms:.3f} ms, "
+        f"presentation {present_ms:.3f} ms")
 
     # ---- I3: the completed interactive image against EXPORT ---------------
     against_export(vis, "I3")
@@ -830,8 +1175,7 @@ def phase_interactive(vis):
     raw = sph.get_image()[..., 0].astype(np.float64)
     ps = torch.as_tensor(vis.data_loader.get_pos_smooth(),
                          device=store.device)
-    vals = torch.as_tensor(store.host_values_for(sph._buffer_name),
-                           device=store.device)
+    vals = store.values_for(sph._buffer_name)
     truth = splat.splat_scatter(ps, vals, sph._matrix().astype(np.float32),
                                 RESOLUTION, np.float32(s))
     truth = truth[..., 0].cpu().numpy().astype(np.float64)
@@ -843,7 +1187,7 @@ def phase_interactive(vis):
     check(rel <= 1e-2, f"I4 density sum rel diff {rel} > 1e-2")
     check(corr > 0.999, f"I4 density correlation {corr} <= 0.999")
     frames = drive_view(vis)
-    log(f"phase I4 view: frames {[(round(f[0], 3),) + f[1:] for f in frames]}")
+    log(f"phase I4 view: frames {FRAME_FIELDS} {show_frames(frames)}")
     check(sph._giant_image is not None, "the interactive frame drew no giant "
           "layer")
     against_export(vis, "I4")
@@ -900,13 +1244,15 @@ def read_counts(tag, need):
     return got
 
 
-def held_calls(tag, vis, sph, pieces, timed, times, column=None):
+def held_calls(tag, vis, sph, pieces, timed, times, column=None,
+               tier=None):
     """K1 and K2 against their plain versions on every call of the given
     EXPORT pieces of the renderer ``sph`` (its buffer and depth channel)
     or, with ``column=(col0, width)``, of every piece of that column
-    launch; the first piece's calls timed beside their plain versions and
-    bounds into ``times`` ({call: (ms, plain ms, bound ms)}).  Returns (K1's
-    and K2's largest differences)."""
+    launch over ``tier`` (``store.PresortedMipTier``); the first
+    piece's calls timed beside their plain versions and bounds into
+    ``times`` ({call: (ms, plain ms, bound ms)}).  Returns (K1's and K2's
+    largest differences)."""
     import numpy as np
     from topsy_tpu_torch.ops import splat, splat_accum, splat_atlas, \
         splat_feed
@@ -919,9 +1265,7 @@ def held_calls(tag, vis, sph, pieces, timed, times, column=None):
     kw_col = {}
     if column is not None:
         fields, vals, gb, msk, pieces, kw_col = column_launches(
-            store.presorted_fields(),
-            store.presorted_values_cm_for(sph._buffer_name),
-            store.presorted_group_buckets, sph._feed_cull_mask(), *column)
+            *tier_arrays(store, sph, tier), *column)
         G = column[1]
     for i, piece in enumerate(pieces):
         label = f"{tag} piece {piece}"
@@ -987,6 +1331,54 @@ def against_truth(tag, raw, truth, channels):
     log(f"phase {tag} against splat_scatter: " + "; ".join(out))
 
 
+def pick_truth(store, dr, tier, c0, width):
+    """(the scatter truth of the depth renderer ``dr``'s CHANGE frame,
+    the particles its launch covers): columns [c0, c0 + width) of ``tier``
+    (the main layout or a decimation mip), with the particles its giant
+    plan excludes from the launch masked out, divided by nothing; plus, when
+    the view has a giant layer, the whole snapshot's excluded particles
+    divided by the frame's mass scale (the layer is always complete and
+    ``get_output_image`` folds it in so)."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch.ops import splat
+    from topsy_tpu_torch.ops.splat_giant import BUCKET_DISABLED, GIANT_H
+    matrix = dr._matrix().astype(np.float32)
+    scale = np.float32(dr.scale)
+    num_levels = splat.default_pyramid(RESOLUTION).num_levels
+    gb = int(dr._giant_bucket)
+    arrays = (tier.pos_smooth, tier.values_for(dr._buffer_name),
+              tier.buckets)
+    G = tier.layout.pad_group
+
+    def giants(ps, buckets):
+        if gb == BUCKET_DISABLED:
+            return torch.zeros_like(buckets, dtype=torch.bool)
+        lev = splat.levels_from_buckets(buckets, RESOLUTION / (2.0 * scale),
+                                        num_levels)
+        h_px = splat.project(ps, matrix, RESOLUTION, scale)[3]
+        return (h_px * splat.exp2_int(-lev) > GIANT_H) & (buckets >= gb)
+
+    def columns(x):
+        tail = tuple(x.shape[1:])
+        return x.reshape((-1, G) + tail)[:, c0:c0 + width].reshape(
+            (-1,) + tail)
+
+    ps, vals, bks = (columns(a) for a in arrays)
+    truth = splat.splat_scatter(ps, vals, matrix, RESOLUTION, scale,
+                                extra_mask=~giants(ps, bks),
+                                depth_channel=True)
+    n_pick = int((vals[:, 0] != 0).sum())
+    if dr._giant_image is not None:
+        ps, vals = store.pos_smooth_presorted, store.presorted_values_for(
+            dr._buffer_name)
+        truth = truth + splat.splat_scatter(
+            ps, vals, matrix, RESOLUTION, scale,
+            extra_mask=giants(ps, store.presorted_buckets),
+            depth_channel=True) / dr.last_render_mass_scale
+    return truth, n_pick
+
+
 def phase_modes(vis):
     """Phases M1-M4, the other additive modes on the EXPORT scene's
     Visualizer (its store and view): RGB and RGB-HDR, bivariate, the depth
@@ -999,11 +1391,12 @@ def phase_modes(vis):
     from topsy_tpu_torch.ops.composite import lattice_composite
     from topsy_tpu_torch.render import sph as sph_module
     from topsy_tpu_torch.render.periodic import PeriodicSPHRenderer
+    from topsy_tpu_torch.visualizer import DrawReason
     t_all = time.perf_counter()
     store = vis.store
     dev = store.device
     vis.show_colorbar = vis.show_scalebar = vis.show_status = False
-    ps = torch.as_tensor(vis.data_loader.get_pos_smooth(), device=dev)
+    ps = store.pos_smooth
     launches, times, summary = {}, {}, {}
     feed_err = accum_err = 0.0
 
@@ -1022,7 +1415,7 @@ def phase_modes(vis):
     check(raw.shape == (RESOLUTION, RESOLUTION, 3) and np.isfinite(raw).all(),
           f"RGB image {raw.shape} not finite")
     truth = splat.splat_scatter(
-        ps, torch.as_tensor(store.host_values_for("rgb"), device=dev),
+        ps, store.values_for("rgb"),
         sph._matrix().astype(np.float32), RESOLUTION, np.float32(sph.scale))
     against_truth("M1 rgb", raw, truth.cpu().numpy(), range(3))
     del truth
@@ -1071,46 +1464,65 @@ def phase_modes(vis):
     summary["present_ms"] = present
 
     # ---- M3: the depth pick ------------------------------------------------
+    # the user's path: an interactive view, then a double-click; the pick
+    # renders one CHANGE frame of the tier its copy of the view's
+    # progression picks
     vis.render_mode = "univariate"
     sph = vis._sph
+    vis.draw(DrawReason.CHANGE)
+    expect = copy.copy(sph.render_progression)
+    expect.start_frame(DrawReason.CHANGE)
+    (c0,), (width,) = expect.get_block(0.0)
+    expect_tier = expect.last_block_tier
     reset_counts()
     depth = vis.get_depth_image()           # the pick's own CHANGE frame
     launches["depth_pick"] = read_counts("depth pick", ("splat_feed",
                                                         "accumulate_groups"))
     dr = sph._get_depth_renderer()
-    check(dr.last_column_ranges == [(0, store.presorted_layout.pad_group)],
-          f"the pick's frame launched {dr.last_column_ranges}")
+    pick_tier = dr.render_progression.last_block_tier
+    check(dr.last_column_ranges == [(c0, width)] and pick_tier == expect_tier,
+          f"the pick's frame launched {dr.last_column_ranges} on tier "
+          f"{pick_tier}, its progression picks {[(c0, width)]} on tier "
+          f"{expect_tier}")
     pick_ms = timed_ms(lambda: vis.get_depth_image(), 3)
-    G = store.presorted_layout.pad_group
+    mips = store.ensure_column_mips()
+    tier = mips[pick_tier] if pick_tier < len(mips) else store.main_tier
     fe, ae = held_calls("M3 depth", vis, dr, None, True, times,
-                        column=(0, G))
+                        column=(c0, width), tier=tier)
     feed_err, accum_err = max(feed_err, fe), max(accum_err, ae)
-    raw = dr.get_image()
-    truth = splat.splat_scatter(
-        ps, torch.as_tensor(store.host_values_for("mass_and_quantity"),
-                            device=dev),
-        dr._matrix().astype(np.float32), RESOLUTION, np.float32(dr.scale),
-        depth_channel=True).cpu().numpy()
-    against_truth("M3 depth renderer", raw, truth, (0, 2))
+    # the truth of the same particles: the launched columns of the tier
+    # (rescaled by the mass scale, as the pick's image is) and the view's
+    # complete giant layer
+    ms = dr.last_render_mass_scale
+    raw = dr.get_image() / ms
+    truth, n_pick = pick_truth(store, dr, tier, c0, width)
+    truth = truth.cpu().numpy()
+    against_truth("M3 depth renderer (the pick's particles)", raw, truth,
+                  (0, 2))
     with np.errstate(invalid="ignore", divide="ignore"):
         d_truth = (truth[..., 2] / truth[..., 0] - 0.5) * dr.scale * 2.0
     dense = truth[..., 0] > 1e-3 * truth[..., 0].max()
     err = np.abs(depth - d_truth)[dense] / (2.0 * dr.scale)
     nan_agree = float((np.isnan(depth) == np.isnan(d_truth)).mean())
     log(f"phase M3: depth pick {pick_ms:.3f} ms (CUDA events, readback and "
-        f"host division included); the pick's launch dropped "
+        f"host division included); its frame rendered tier {pick_tier} "
+        f"columns {dr.last_column_ranges} ({n_pick} particles, mass "
+        f"scale {ms!r}, giant layer {dr._giant_image is not None}); the "
+        f"pick's launch dropped "
         f"{dr.last_dropped_splats} splats; launches {launches['depth_pick']}; "
-        f"against the scatter truth on the {dense.mean():.4f} of pixels "
-        f"holding 1e-3 of the densest pixel's mass: |d depth| / view depth "
-        f"median {np.median(err):.3e}, p99 {np.percentile(err, 99):.3e}, "
-        f"max {err.max():.3e}; NaN pattern agrees on {nan_agree:.6f}")
+        f"against the scatter truth of those particles on the "
+        f"{dense.mean():.4f} of pixels holding 1e-3 of the densest pixel's "
+        f"mass: |d depth| / view depth median {np.median(err):.3e}, p99 "
+        f"{np.percentile(err, 99):.3e}, max {err.max():.3e}; NaN pattern "
+        f"agrees on {nan_agree:.6f}")
     # the pick's launch drops splats that the truth keeps (the mass
     # channel's sum differs by their share), which moves the weighted
     # depth of the pixels they cover
     check(np.median(err) <= 1e-4 and np.percentile(err, 99) <= 5e-3
           and err.max() <= 1e-2, "the depth pick differs from the scatter "
           "truth")
-    summary["pick_ms"] = pick_ms
+    summary.update(pick_ms=pick_ms, pick_tier=pick_tier,
+                   pick_columns=[c0, width])
     del truth, raw
 
     # ---- M4: periodic tiling over the scene's store -----------------------
@@ -1226,6 +1638,9 @@ def main() -> int:
         f"n_presorted={store.n_presorted} groups={ng} res={RESOLUTION}; "
         f"pieces {pieces}; giant bucket threshold {sph._giant_bucket}")
 
+    # ---- phase P: the presort built on the card ----------------------------
+    psummary = phase_presort(vis)
+
     # ---- phases 4-5: each kernel against its plain version, every piece ----
     matrix = sph._matrix().astype(np.float32)
     scale = np.float32(sph.scale)
@@ -1317,8 +1732,7 @@ def main() -> int:
     check(image.shape == (RESOLUTION, RESOLUTION), "SPH content shape")
     t0 = time.perf_counter()
     ps = torch.as_tensor(vis.data_loader.get_pos_smooth(), device=dev)
-    vals = torch.as_tensor(store.host_values_for(sph._buffer_name),
-                           device=dev)
+    vals = store.values_for(sph._buffer_name)
     truth = splat.splat_scatter(ps, vals, matrix, RESOLUTION, scale)
     truth = truth[..., 0].cpu().numpy().astype(np.float64)
     den = raw[..., 0].astype(np.float64)
@@ -1333,6 +1747,10 @@ def main() -> int:
     check(pres[..., :3].std() > 0, "presentation image is constant")
 
     del truth, ps, vals
+
+    # ---- phase D: the device loader, bench.py's path ------------------------
+    dlaunches, dsummary = phase_device_loader(dev, sph)
+    torch.cuda.empty_cache()
 
     # ---- phases I1-I4: the interactive path on the same Visualizer ---------
     ilaunches, i_feed_err, i_accum_err, isummary = phase_interactive(vis)
@@ -1351,15 +1769,25 @@ def main() -> int:
     ssph = vis._sph
     check(isinstance(ssph, surface.SurfaceSPHRenderer), "not the surface "
           "renderer")
+    # the EXPORT frame renders each tier's own columns: all of the deepest
+    # mip's, then each parent's above its mip's
+    from topsy_tpu_torch.ops.morton import min_slice_width
+    smips = store.ensure_column_mips()
+    slayouts = [m.layout for m in smips] + [store.presorted_layout]
     prog = ssph._render_progression
     prog.start_frame(DrawReason.EXPORT)
     blocks = []
     while (b := prog.get_block(0.0)) is not None:
-        blocks.append(b)
+        blocks.append((b, prog.last_block_tier))
         prog.end_block(0.0)
     prog.end_frame_get_scalefactor()
-    check(blocks == [([0], [G])], f"the EXPORT block is not every column: "
-          f"{blocks}")
+    covered = sum(int(slayouts[t].real_per_column[c0:c0 + w].sum())
+                  for ([c0], [w]), t in blocks)
+    starts = [0] + [min_slice_width(lay) for lay in slayouts[1:]]
+    check([t for _, t in blocks] == list(range(len(slayouts)))
+          and [b[0][0] for b, _ in blocks] == starts
+          and covered == store.n, f"the EXPORT blocks {blocks} are not each "
+          f"tier's own columns from {starts}, covering {covered} particles")
     sps = store.pos_smooth_presorted
     svals = store.presorted_values_for(ssph._buffer_name)
     sbks = store.presorted_buckets
@@ -1369,8 +1797,9 @@ def main() -> int:
                     for c in chunks]
     pyr = splat.default_pyramid(RESOLUTION)
     log(f"phase S1: {time.perf_counter() - t0:.2f} s; EXPORT blocks "
-        f"{blocks}; column launch chunks {chunk_groups} (first group, "
-        "groups)")
+        f"(block, tier) {blocks}; S2 holds K3 on the main layout's full-width"
+        f" column launch, chunks {chunk_groups} (first group, groups); SI1 on"
+        " the frames' own launches")
 
     k3_err = 0.0
     k3_ms, k3_plain_ms, k3_bound = {}, {}, {}
@@ -1580,7 +2009,6 @@ def main() -> int:
           "of the image, not at least half")
 
     # ---- phase SI: the interactive surface at both cuts --------------------
-    from topsy_tpu_torch.ops.morton import min_slice_width
     from topsy_tpu_torch.ops.splat_giant import giant_plan
     from topsy_tpu_torch.render.surface import surface_column_launches
     si_launches, si_summary = {}, {}
@@ -1594,11 +2022,18 @@ def main() -> int:
         ssph.render(DrawReason.CHANGE)
         cut = np.float32(ssph._density_cut_value())
         gb = int(ssph._giant_bucket)
-        # SI1: K3 on slices one and three quanta wide and on the CHANGE
-        # frame's own full-width launch, every call held and timed
-        for col0, width in ((0, q), (q, 3 * q), (0, G)):
+        # SI1: K3 on main-layout slices one and three quanta wide, on the
+        # main layout's REFINE launch (its columns above the mip's) and its
+        # full width, and on the mip tier's CHANGE launch, every call held
+        # and timed
+        for ti, col0, width in ((None, 0, q), (None, q, 3 * q),
+                                (None, q, G - q), (None, 0, G), (0, 0, G)):
+            t = store.main_tier if ti is None else smips[ti]
+            arrays = (t.pos_smooth, t.values_for(ssph._buffer_name),
+                      t.buckets)
+            name = "" if ti is None else f"tier{ti}_"
             ps_c, vals_c, bks_c, _, chunks_c, kw_c = surface_column_launches(
-                sps, svals, sbks, None, None, col0, width, G)
+                *arrays, None, None, col0, width, G)
             for ci, sl in enumerate(chunks_c):
                 main_kw, t2_kw, t3_kw, drop, shape = zsplat_atlas.deposit_calls(
                     ps_c[sl], vals_c[sl], ssph._matrix().astype(np.float32),
@@ -1607,16 +2042,17 @@ def main() -> int:
                 check(main_kw["group"] == min(width, 512),
                       f"SI width {width}: groups of {main_kw['group']}")
                 keys = zsplat_accum.pack_atlas(torch.zeros(shape, device=dev))
-                for name, kw in (("main", main_kw), ("tier2", t2_kw),
-                                 ("tier3", t3_kw)):
-                    keys = k3_compare(f"SI_{tag}_w{width}_chunk{ci}_{name}",
-                                      kw, keys, timing=ci == 0)
-                log(f"phase SI {tag} width {width} chunk {ci}: dropped "
-                    f"{int(drop.item())}")
+                for shape_, kw in (("main", main_kw), ("tier2", t2_kw),
+                                   ("tier3", t3_kw)):
+                    keys = k3_compare(
+                        f"SI_{tag}_{name}c{col0}_w{width}_chunk{ci}_{shape_}",
+                        kw, keys, timing=ci == 0)
+                log(f"phase SI {tag} {name or 'main '}columns [{col0}, "
+                    f"{col0 + width}) chunk {ci}: dropped {int(drop.item())}")
                 del main_kw, t2_kw, t3_kw, keys
         # SI2: interactive views, each a CHANGE draw then REFINE draws
         reset_counts()
-        change_ms, n_frames, drops = [], [], []
+        change_ms, n_frames, drops, tiers_seen = [], [], [], []
         for v in range(2 + FRAMES):
             vis.rotate(0.0, 0.05)
             frames = drive_view(vis)
@@ -1624,9 +2060,9 @@ def main() -> int:
                 change_ms.append(frames[0][0])
                 n_frames.append(len(frames))
                 drops.append([f[2] for f in frames])
+                tiers_seen.append([f[4] for f in frames])
             log(f"phase SI2 {tag} view {v}{' (warm-up)' if v < 2 else ''}: "
-                "frames (ms by the frame clock, column ranges, dropped, mass "
-                f"scale) {[(round(f[0], 3),) + f[1:] for f in frames]}")
+                f"frames {FRAME_FIELDS} {show_frames(frames)}")
         si_launches[tag] = read_counts(f"interactive surface {tag}",
                                        ("accumulate_max_groups",
                                         "zdeposit_plan"))
@@ -1645,8 +2081,8 @@ def main() -> int:
         log(f"phase SI2 {tag}: {FRAMES} views; CHANGE frame median "
             f"{statistics.median(change_ms):.3f} ms by the frame clock "
             f"(frames {[round(t, 3) for t in change_ms]}); frames to "
-            f"completion {n_frames}; dropped per frame {drops}; launches "
-            f"{si_launches[tag]}")
+            f"completion {n_frames}; tiers per frame {tiers_seen}; dropped "
+            f"per frame {drops}; launches {si_launches[tag]}")
         log(f"phase SI3 {tag}: the completed interactive image against the "
             f"EXPORT image of its view: coverage flips {flips} of "
             f"{int(cov_e.sum())} covered; values equal on {v_eq:.6f}, depths "
@@ -1656,7 +2092,8 @@ def main() -> int:
               f"{flips}")
         check(v_eq >= 0.999, f"SI3 {tag}: values equal on {v_eq}")
         si_summary[tag] = dict(change_ms=change_ms, frames=n_frames,
-                               dropped=drops, flips=flips)
+                               tiers=tiers_seen, dropped=drops, flips=flips,
+                               bit_identical=bool(torch.equal(im_i, im_e)))
         log(f"phase SI {tag}: {time.perf_counter() - t0:.1f} s")
     # SI4: zoomed out until the surface giant plan takes candidates, at the
     # lowest cut (giants are diffuse), against the scatter truth
@@ -1672,7 +2109,7 @@ def main() -> int:
     check(ssph._surface_giant_layer is not None, "the interactive surface "
           "frame drew no giant layer")
     log(f"phase SI4 at scale {zs} ({size} giant candidates): frames "
-        f"{[(round(f[0], 3),) + f[1:] for f in frames]}")
+        f"{FRAME_FIELDS} {show_frames(frames)}")
     surface_truth("SI4 cut0 zoomed out", ssph.get_image(),
                   np.float32(ssph._density_cut_value()),
                   int(ssph._giant_bucket))
@@ -1681,7 +2118,8 @@ def main() -> int:
 
     # ---- phase 8: kernels --------------------------------------------------
     # launches per path, each counted from 0 just before its path ran
-    paths = {"export": launches, "interactive": ilaunches, **mlaunches,
+    paths = {"export": launches, "device_loader_export": dlaunches,
+             "interactive": ilaunches, **mlaunches,
              **{f"surface_export_{k}": v for k, v in slaunches.items()},
              **{f"surface_interactive_{k}": v
                 for k, v in si_launches.items()}}
@@ -1734,7 +2172,11 @@ def main() -> int:
          "ms_by_shape": k3_ms, "plain_ms_by_shape": k3_plain_ms,
          "bound_ms_by_shape": {k: v[0] for k, v in k3_bound.items()}},
     ]
-    log(f"summary: modes {json.dumps(msummary)}; interactive surface "
+    interactive = {k: v for k, v in isummary.items()
+                   if k not in ("feed_t", "accum_t")}
+    log(f"summary: presort {json.dumps(psummary)}; device loader "
+        f"{json.dumps(dsummary)}; interactive {json.dumps(interactive)}; "
+        f"modes {json.dumps(msummary)}; interactive surface "
         f"{json.dumps(si_summary)}")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 from topsy_tpu import config
+from topsy_tpu.ops import morton_device as r_morton_device
 from topsy_tpu.ops import splat as r_splat
 from topsy_tpu.ops import splat_atlas as r_atlas
 from topsy_tpu.ops import splat_giant as r_giant
@@ -14,6 +15,7 @@ from topsy_tpu.ops import zsplat_atlas as r_zatlas
 from topsy_tpu.ops import zsplat_pallas as r_zpallas
 
 from topsy_tpu_torch.color import maps as p_maps
+from topsy_tpu_torch.ops import morton_device as p_morton_device
 from topsy_tpu_torch.ops import splat as p_splat
 from topsy_tpu_torch.ops import splat_accum as p_accum
 from topsy_tpu_torch.ops import splat_atlas as p_atlas
@@ -41,6 +43,7 @@ PINNED = [
                            "WINDOW_ROWS"]),
     (p_zsplat, r_zsplat, ["HEMI_SUPPORT"]),
     (p_zatlas, r_zatlas, ["GROUP"]),
+    (p_morton_device, r_morton_device, ["R_CAP"]),
 ]
 
 # (module, attribute path) pairs whose reference modules import matplotlib,

@@ -47,6 +47,7 @@ def layouts(loaders):
 def _config():
     names = [n for n in vars(p_config) if n.isupper()]
     assert len(names) > 20
+    assert {"COLUMN_MIP_FLOOR_TARGET", "COLUMN_MIP_MAX_TIERS"} <= set(names)
     for n in names:
         assert getattr(p_config, n) == getattr(r_config, n), n
 

@@ -1,10 +1,12 @@
 """The port's interactive LOD path (CHANGE and REFINE column frames over the
-host presort) against the reference's, and against its own EXPORT frames,
+presort) against the reference's, and against its own EXPORT frames,
 mirroring the reference's tests of the path (tests/test_presorted.py,
 tests/test_visualizer.py) on the 20k- and 30k-particle scenes at 128^2.
 
-With the host presort the progression has one tier, so a CHANGE frame
-renders every column in one launch and schedules no REFINE frame.  The
+At these sizes the layout has no decimation-mip tier (its smallest column
+block holds fewer than config.COLUMN_MIP_FLOOR_TARGET particles; the tiers
+are tests/test_torch_column_mips.py's), so a CHANGE frame renders every
+column in one launch and schedules no REFINE frame.  The
 tests that continue a frame install ``_QuantumColumns``, a columns
 progression that hands out given column widths one frame at a time, so
 that REFINE frames render real partial ranges (128 columns, then 384).
@@ -45,8 +47,8 @@ N, RES = 20000, 128
 
 class _QuantumColumns(RenderProgressionColumns):
     """A columns progression whose interactive frames each render the next
-    of ``widths`` columns (the host layout's own progression renders all of
-    them in the first frame)."""
+    of ``widths`` columns (the one-tier layout's own progression renders
+    all of them in the first frame)."""
 
     def __init__(self, real_per_column, widths, **kw):
         super().__init__(real_per_column, mip_tiers=[], **kw)

@@ -214,9 +214,9 @@ def test_store_keeps_each_buffer():
     assert store.presorted_values_cm_for("mass_and_quantity") is mq
     store.quantity_name = "test-quantity"
     assert store.presorted_values_cm_for("rgb") is not rgb
-    assert len(store._values) == 1
+    assert len(store._main._values) == 1
     with pytest.raises(KeyError):
-        store.host_values_for("no-such-buffer")
+        store.values_for("no-such-buffer")
 
 
 # ---- colormaps ----------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The PyTorch port imports and renders every mode (univariate EXPORT,
 CHANGE and REFINE frames, surface EXPORT and CHANGE frames, rgb, rgb-hdr,
-bivariate, the depth pick and periodic tiling) with jax and topsy_tpu made
-unimportable, and its sources import neither."""
+bivariate, the depth pick and periodic tiling), presorts on the device and
+renders a device loader's snapshot from a decimation-mip tier, with jax and
+topsy_tpu made unimportable, and its sources import neither."""
 
 import os
 import re
@@ -49,6 +50,25 @@ for mode, dtype in (("rgb", np.uint8), ("rgb-hdr", np.float16),
     assert vis.draw(DrawReason.CHANGE).dtype == dtype
 depth = vis.get_depth_image()
 assert depth.shape == (64, 64) and np.isfinite(depth).any()
+from topsy_tpu_torch import config
+from topsy_tpu_torch.loaders import TestDataDeviceLoader
+from topsy_tpu_torch.ops.morton_device import DevicePresortedLayout
+from topsy_tpu_torch.visualizer import Visualizer
+assert isinstance(vis.store.presorted_layout, DevicePresortedLayout)
+config.COLUMN_MIP_FLOOR_TARGET = 300
+config.INITIAL_PARTICLES_TO_RENDER = 100
+dvis = Visualizer(data_loader_class=TestDataDeviceLoader,
+                  data_loader_args=(4000,),
+                  data_loader_kwargs={"device": "cpu"},
+                  render_resolution=64, device="cpu",
+                  canvas_class=OffscreenCanvas)
+dvis.show_status = dvis.show_colorbar = dvis.show_scalebar = False
+dvis.draw(DrawReason.CHANGE)
+assert dvis.store.ensure_column_mips()
+assert dvis._sph.render_progression.last_block_tier == 0
+while dvis._sph.needs_refine():
+    dvis.draw(DrawReason.REFINE)
+assert np.isfinite(dvis._sph.get_image()).all()
 tiled = topsy_tpu_torch.test(2000, render_resolution=64, device="cpu",
                              canvas_class=OffscreenCanvas,
                              periodic_tiling=True)

@@ -81,18 +81,25 @@ def _surface(v):
 
 @pytest.fixture(scope="module")
 def port():
-    return _surface(topsy_tpu_torch.test(N, render_resolution=RES,
-                                         canvas_class=OffscreenCanvas,
-                                         device="cpu"))
+    """The port's surface Visualizer on the host presort, as ``ref``: its
+    store falls back to it when its device build returns None."""
+    import topsy_tpu_torch.ops.morton_device as md
+    with mock.patch.object(md, "build_presorted_device", lambda *a, **k: None):
+        v = _surface(topsy_tpu_torch.test(N, render_resolution=RES,
+                                          canvas_class=OffscreenCanvas,
+                                          device="cpu"))
+        v.store.ensure_presorted()
+    assert type(v.store.presorted_layout).__name__ == "PresortedLayout"
+    return v
 
 
 @pytest.fixture(scope="module")
 def ref():
     """The reference's surface renderer over the same snapshot, built
     without a Visualizer (which would first render a full-width EXPORT
-    frame, one more interpreted kernel compile), on the host presort, the
-    port's: its device presort shuffles each group with other random bits,
-    so its column slices would hold other particles."""
+    frame, one more interpreted kernel compile), on the host presort, as
+    ``port``: the two device presorts shuffle each group with other random
+    bits, so their column slices would hold other particles."""
     import topsy_tpu.ops.morton_device as md
     from topsy_tpu.loaders import TestDataLoader
     from topsy_tpu.render.store import ParticleStore

@@ -76,6 +76,14 @@ INTERACTIVE_USE_PRESORTED = True
 # (progression.RenderProgressionColumns); the surface renderer activates
 # the columns progression even for EXPORT
 
+COLUMN_MIP_FLOOR_TARGET = 1 << 20
+# decimation-mip tiers (ops/morton_device.build_mip_layout) are chained
+# until the smallest interactive column block of the deepest tier holds at
+# most this many particles; interactive CHANGE frames render whole tiers
+
+COLUMN_MIP_MAX_TIERS = 2
+# upper bound on chained decimation tiers
+
 SPLAT_COLUMNS_GROUP_CAP = 1 << 15
 # max particle groups per column launch; larger column renders split into
 # group-axis pieces combined by sum / max-composite

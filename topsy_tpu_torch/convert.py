@@ -1,10 +1,15 @@
-"""Carry the reference's host presort state over to the port's tensors.
+"""Presorted state as device gathers, and the reference's layouts carried
+over to the port's tensors.
 
-The host presort (``ops.morton.build_presorted``, or the reference's own
-``PresortedLayout``, taken duck-typed as a plain object with numpy fields)
-plus host particle arrays become the port's device state.  The port's store
-builds its state through it, and the tests use it to give both packages
-identical inputs.
+Every presorted array of the port is one row gather through a
+``morton_device.DevicePresortedLayout`` (``gidx``, the source row of every
+output slot): the transposed fields, the channel-major values, the cell
+ids and the giant candidate pool.  The host presort
+(``ops.morton.build_presorted``, or the reference's own layouts, taken
+duck-typed with numpy or jax fields) becomes such a layout through
+``device_layout_from_host`` and ``device_layout_from_reference``.  The
+store builds its state with these functions, and the tests use them to
+give both packages one and the same layout.
 """
 
 from __future__ import annotations
@@ -13,58 +18,108 @@ import numpy as np
 import torch
 
 from .ops import morton, splat_giant
+from .ops.morton_device import DevicePresortedLayout
 
 
-def values_from_reference(layout, values: np.ndarray, slots: np.ndarray,
-                          device):
-    """Presorted channel values: (values_cm (C, n_groups, G) on ``device``,
-    giant pool values (m, C) on ``device``) for host values (n, C)."""
+def _gather_layout(gidx, layout, device) -> DevicePresortedLayout:
+    return DevicePresortedLayout(
+        gidx=torch.from_numpy(np.array(gidx, np.int32)).to(device),
+        buckets=torch.from_numpy(np.array(layout.buckets, np.int32)).to(
+            device),
+        n_out=int(layout.n_out), pad_group=int(layout.pad_group),
+        run_quantum=int(layout.run_quantum),
+        real_per_column=np.asarray(layout.real_per_column, np.int64),
+        n_real=int(layout.n_real))
+
+
+def device_layout_from_host(layout, device) -> DevicePresortedLayout:
+    """A host ``PresortedLayout`` (``order``, ``dst``) as a gather layout
+    on ``device``: slot ``dst[i]`` gathers source row ``order[i]``, every
+    other slot the sentinel ``n_real``."""
+    gidx = np.full(layout.n_out, layout.n_real, np.int32)
+    gidx[np.asarray(layout.dst)] = np.asarray(layout.order)
+    return _gather_layout(gidx, layout, device)
+
+
+def device_layout_from_reference(layout, device) -> DevicePresortedLayout:
+    """The reference's ``DevicePresortedLayout`` (its ``gidx`` and
+    ``buckets`` device arrays, ``real_per_column`` numpy) as the port's, on
+    ``device``."""
+    return _gather_layout(np.asarray(layout.gidx), layout, device)
+
+
+def presorted_positions(layout: DevicePresortedLayout,
+                        pos_smooth: torch.Tensor) -> torch.Tensor:
+    """(4, n_out) presorted x, y, z, h rows (pads at PAD_POS)."""
+    return layout.apply(pos_smooth.to(torch.float32),
+                        fill=morton.PAD_POS).t().contiguous()
+
+
+def presorted_values_cm(layout: DevicePresortedLayout,
+                        values: torch.Tensor) -> torch.Tensor:
+    """Channel-major presorted values (C, n_groups, pad_group), pads 0."""
+    G = layout.pad_group
+    vals = layout.apply(values.to(torch.float32)).t().contiguous()
+    return vals.reshape(vals.shape[0], layout.n_out // G, G)
+
+
+def presorted_cell_ids(layout: DevicePresortedLayout,
+                       cell_ids: torch.Tensor | None) -> torch.Tensor:
+    """(n_out,) int32 cell id per slot (0 without cells and for pads)."""
+    if cell_ids is None:
+        return torch.zeros(layout.n_out, dtype=torch.int32,
+                           device=layout.gidx.device)
+    return layout.apply(cell_ids.to(torch.int32))
+
+
+def gather_presorted_rows(layout: DevicePresortedLayout, arr: torch.Tensor,
+                          slots: torch.Tensor) -> torch.Tensor:
+    """Rows of the presorted order of ``arr`` (original order) at the given
+    real ``slots``, without building the whole presorted copy."""
+    return arr.index_select(0, layout.gidx.index_select(0, slots))
+
+
+def state_from_layout(layout: DevicePresortedLayout, pos_smooth, values,
+                      cell_ids=None) -> dict:
+    """The port's presorted state over a gather layout, by device gathers.
+
+    pos_smooth: (n, 4) float32, values: (n, C), cell_ids: optional (n,),
+    tensors on the layout's device.  Returns dict(fields=(x, y, z,
+    h) each (n_groups, G), values_cm (C, n_groups, G), group_buckets
+    (n_groups,) int32, buckets (n_out,) int32, giant_meta (host tuple, see
+    ``splat_giant.candidate_slots``), giant_pos (m, 4), giant_buckets (m,)
+    int32, giant_values (m, C), giant_cell_ids (m,) int32,
+    cell_ids_presorted (n_out,) int32)."""
     G = layout.pad_group
     ng = layout.n_out // G
-    vals_p = layout.apply(np.asarray(values, dtype=np.float32))
-    values_cm = torch.from_numpy(
-        np.ascontiguousarray(vals_p.T).reshape(vals_p.shape[1], ng, G))
-    giant_values = torch.from_numpy(np.ascontiguousarray(vals_p[slots]))
-    return values_cm.to(device), giant_values.to(device)
+    meta = splat_giant.candidate_slots(layout)
+    slots = torch.from_numpy(meta[0].astype(np.int64)).to(
+        layout.gidx.device)
+    pos = presorted_positions(layout, pos_smooth)
+    cells = presorted_cell_ids(layout, cell_ids)
+    return dict(
+        fields=tuple(pos[k].reshape(ng, G) for k in range(4)),
+        values_cm=presorted_values_cm(layout, values),
+        group_buckets=layout.buckets.reshape(ng, G)[:, 0].contiguous(),
+        buckets=layout.buckets, giant_meta=meta,
+        giant_pos=gather_presorted_rows(layout, pos_smooth.to(torch.float32),
+                                        slots),
+        giant_buckets=torch.from_numpy(meta[1].astype(np.int32)).to(
+            layout.gidx.device),
+        giant_values=gather_presorted_rows(layout, values.to(torch.float32),
+                                           slots),
+        giant_cell_ids=cells.index_select(0, slots),
+        cell_ids_presorted=cells)
 
 
 def state_from_reference(layout, pos_smooth: np.ndarray, values: np.ndarray,
                          device, cell_ids: np.ndarray | None = None) -> dict:
-    """The port's presorted state from a host ``PresortedLayout``.
+    """``state_from_layout`` for a host ``PresortedLayout`` and host arrays:
+    pos_smooth (n, 4), values (n, C), cell_ids optional (n,)."""
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    pos_smooth: (n, 4) f32 host positions + smoothing; values: (n, C) host
-    channel values; cell_ids: optional (n,) host cell index per particle.
-    Returns dict(fields=(x, y, z, h) each (n_groups, G), values_cm (C,
-    n_groups, G), group_buckets (n_groups,) int32, buckets (n_out,) int32,
-    giant_meta (host tuple, see ``splat_giant.candidate_slots``), giant_pos
-    (m, 4), giant_buckets
-    (m,) int32, giant_values (m, C), giant_cell_ids (m,) int32,
-    cell_ids_presorted (n_out,) int32), all tensors on ``device``."""
-    G = layout.pad_group
-    ng = layout.n_out // G
-    ps_p = layout.apply(np.asarray(pos_smooth, dtype=np.float32),
-                        fill=morton.PAD_POS)
-    fields = tuple(
-        torch.from_numpy(np.ascontiguousarray(ps_p[:, k]).reshape(ng, G))
-        .to(device) for k in range(4))
-    group_buckets = torch.from_numpy(
-        np.ascontiguousarray(layout.buckets.reshape(ng, G)[:, 0])
-        .astype(np.int32)).to(device)
-    meta = splat_giant.candidate_slots(layout)
-    slots = meta[0]
-    values_cm, giant_values = values_from_reference(layout, values, slots,
-                                                    device)
-    if cell_ids is None:
-        cell_p = np.zeros(layout.n_out, np.int32)
-    else:
-        cell_p = layout.apply(np.asarray(cell_ids, dtype=np.int32))
-    return dict(
-        fields=fields, values_cm=values_cm, group_buckets=group_buckets,
-        buckets=torch.from_numpy(np.asarray(layout.buckets, np.int32)).to(
-            device),
-        giant_meta=meta,
-        giant_pos=torch.from_numpy(np.ascontiguousarray(ps_p[slots])).to(device),
-        giant_buckets=torch.from_numpy(meta[1].astype(np.int32)).to(device),
-        giant_values=giant_values,
-        giant_cell_ids=torch.from_numpy(cell_p[slots]).to(device),
-        cell_ids_presorted=torch.from_numpy(cell_p).to(device))
+    return state_from_layout(
+        device_layout_from_host(layout, device), put(pos_smooth, np.float32),
+        put(values, np.float32),
+        None if cell_ids is None else put(cell_ids, np.int32))

@@ -1,7 +1,8 @@
 """Static (smoothing-bucket, Morton) particle ordering for sort-free splats.
 
-A pinned copy of ``topsy_tpu/ops/morton.py`` (the host presort; the
-decimation-mip builders are left out).
+A pinned copy of ``topsy_tpu/ops/morton.py``: the host presort, the
+store's fallback where the device build (``ops/morton_device.py``, with the
+decimation-mip layouts) returns None.
 
 The atlas splatter needs particle groups whose projected (row band, column)
 span fits a bounded accumulation window.  The interactive path gets this

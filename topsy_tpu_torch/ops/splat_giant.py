@@ -12,8 +12,8 @@ The products run in full float32 (TF32 off, set in
 ``zsplat_giant_image`` is the surface mode's counterpart: the exact
 front-most hemisphere fragments of the giants over the whole framebuffer.
 
-The candidate planning (``candidate_slots`` .. ``giant_plan``) is host numpy
-over the host presort layout.
+The candidate planning (``candidate_slots`` .. ``giant_plan``) is host numpy;
+``candidate_slots`` reads the host or the device presort layout.
 """
 
 from __future__ import annotations
@@ -186,18 +186,38 @@ def select_giants_topk(giant_mask, h_px, cap: int):
 # ---------------------------------------------------------------------------
 
 def candidate_slots(layout, cap: int = CAP):
-    """Static giant-candidate metadata for a host presort layout: (slots
+    """Static giant-candidate metadata for a presort layout: (slots
     ascending (m,) int32, slot buckets (m,) int32, hist_buckets (B,) int32,
-    hist_counts (B,) int64) — the last min(cap, n_real) real slots."""
+    hist_counts (B,) int64) — the last min(cap, n_real) real slots, whose
+    buckets are the largest, and the histogram of every real particle's
+    bucket.  Host numpy results, for the host ``PresortedLayout`` (``dst``
+    lists the real slots) and the device layout (real slots are ``gidx <
+    n_real``; one pass on its device, then m slots and the histogram read
+    back)."""
     m = int(min(cap, layout.n_real))
     z = np.zeros(0, np.int32)
     if m == 0:
         return z, z, z, np.zeros(0, np.int64)
-    real_slots = np.sort(np.asarray(layout.dst))
-    slots = real_slots[-m:].astype(np.int32)
-    all_buckets = np.asarray(layout.buckets)[real_slots]
-    buckets = all_buckets[-m:]
-    hist_buckets, hist_counts = np.unique(all_buckets, return_counts=True)
+    dst = getattr(layout, "dst", None)
+    if dst is not None:
+        real_slots = np.sort(np.asarray(dst))
+        slots = real_slots[-m:].astype(np.int32)
+        all_buckets = np.asarray(layout.buckets)[real_slots]
+        buckets = all_buckets[-m:]
+        hist_buckets, hist_counts = np.unique(all_buckets, return_counts=True)
+    else:
+        real = layout.gidx < layout.n_real
+        # count of real slots at or after each slot
+        cum = torch.flip(torch.cumsum(torch.flip(real, (0,)), 0), (0,))
+        slots_d = torch.nonzero(real & (cum <= m)).flatten()
+        b_real = layout.buckets[real].to(torch.int64)
+        bmin = int(b_real.min())
+        hist = torch.bincount(b_real - bmin).cpu().numpy()
+        slots = slots_d.cpu().numpy().astype(np.int32)
+        buckets = layout.buckets[slots_d].cpu().numpy()
+        nz = hist > 0
+        hist_buckets = np.arange(bmin, bmin + len(hist))[nz]
+        hist_counts = hist[nz]
     return (slots, buckets.astype(np.int32),
             hist_buckets.astype(np.int32), hist_counts.astype(np.int64))
 

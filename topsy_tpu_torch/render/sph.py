@@ -3,18 +3,19 @@
 Counterpart of ``SPHRenderer``, ``RGBSPHRenderer`` (the three band masses,
 C = 3) and ``DepthSPHRenderer`` (a mass-weighted clip-depth channel, the
 double-click pick's ``get_depth_image``) in ``topsy_tpu/render/sph.py``
-over the host presort.  ``render(DrawReason.EXPORT)`` plans the exact giant layer
-(``_prepare_giants``), then renders the presorted snapshot through
-``splat_atlas_fields`` in pieces of at most ``config.SPLAT_FEED_LAUNCH_CAP``
-particles and sums them.  CHANGE and REFINE frames switch the progression to
-``RenderProgressionColumns`` and render whole-column ranges of the presorted
-(n_groups, pad_group) matrices, one un-merged column slice per range
-(``_render_block_columns_fields``), with no per-frame sort and no host
-synchronisation: their device time is read later from the frame clock
-(``notify_presentation_barrier``).  A REFINE frame continues the range and
-keeps the view's giant layer.  ``get_image()`` returns the raw (mass, mass *
-quantity) framebuffer scaled by the photometric mass factor, which makes a
-partial frame look whole.
+over the store's presort.  ``render(DrawReason.EXPORT)`` plans the exact
+giant layer (``_prepare_giants``), then renders the presorted snapshot
+through ``splat_atlas_fields`` in pieces of at most
+``config.SPLAT_FEED_LAUNCH_CAP`` particles and sums them.  CHANGE and
+REFINE frames switch the progression to ``RenderProgressionColumns`` over
+the main layout and its decimation-mip tiers, and render whole-column
+ranges of the (n_groups, pad_group) matrices of the tier each block names,
+one un-merged column slice per range (``_render_block_columns_fields``),
+with no per-frame sort and no host synchronisation: their device time is
+read later from the frame clock (``notify_presentation_barrier``).  A
+REFINE frame continues the range and keeps the view's giant layer.
+``get_image()`` returns the raw (mass, mass * quantity) framebuffer scaled
+by the photometric mass factor, which makes a partial frame look whole.
 """
 
 from __future__ import annotations
@@ -123,7 +124,7 @@ class SPHRenderer:
         self._dropped_splats = None
         self._cell_table = store.cell_mask_table(None)
         self._cell_table_generation = None
-        self._fields_mask = None
+        self._fields_masks = {}
         #: (col0, ncols) of each column launch of the last interactive frame
         self.last_column_ranges: list = []
 
@@ -297,10 +298,12 @@ class SPHRenderer:
             prog.discard_deferred_timing()
 
     def _maybe_activate_columns(self, draw_reason) -> bool:
-        """Switch the progression to sort-free column LOD over the host
-        presort (``RenderProgressionColumns``), once per renderer; a REFINE
-        or EXPORT frame never switches.  The host layout has no decimation
-        tiers.  Returns whether the columns progression is active."""
+        """Switch the progression to sort-free column LOD
+        (``RenderProgressionColumns``) over the presorted layout and its
+        decimation-mip tiers (``store.ensure_column_mips``; none for small
+        snapshots or the host fallback), once per renderer; a REFINE or
+        EXPORT frame never switches.  Returns whether the columns
+        progression is active."""
         from ..ops.morton import min_slice_width
         from ..progression import RenderProgressionColumns
         if isinstance(self._render_progression, RenderProgressionColumns):
@@ -314,11 +317,21 @@ class SPHRenderer:
         layout = store.presorted_layout
         if layout.real_per_column is None:
             return False  # layout without safe column slicing
+        mips = store.ensure_column_mips()
         self._render_progression = RenderProgressionColumns(
             layout.real_per_column,
             cell_layout=getattr(self._render_progression, "cell_layout", None),
-            col_quantum=min_slice_width(layout), mip_tiers=[])
+            col_quantum=min_slice_width(layout),
+            mip_tiers=[(m.layout.real_per_column, min_slice_width(m.layout))
+                       for m in mips])
         return True
+
+    def _block_tier(self):
+        """The tier (``store.PresortedMipTier``) the progression's last
+        block indexes: a decimation mip, or the main layout (the last)."""
+        mips = self._store.ensure_column_mips()
+        i = self._render_progression.last_block_tier
+        return mips[i] if i < len(mips) else self._store.main_tier
 
     def _prepare_giants(self, matrix, scale, keep: bool = False):
         """Per-view giant planning: sets the exclusion bucket threshold of
@@ -352,24 +365,17 @@ class SPHRenderer:
 
     def _render_columns_range(self, matrix, scale, col0: int, ncols: int,
                               first_block: bool) -> bool:
-        """Columns [col0, col0 + ncols) of the presorted matrices in one
-        launch (``_render_block_columns_fields``), added to the frame's
-        image and its dropped count (summed on the device).  The host
-        layout has no decimation tiers, so the progression's
-        ``last_block_tier`` always names the main layout (tier 0).  Returns
-        the updated ``first_block``."""
-        tier = self._render_progression.last_block_tier
-        if tier != 0:
-            raise NotImplementedError(
-                f"decimation tier {tier}: the column mips are ROADMAP item "
-                "M9b")
-        store = self._store
+        """Columns [col0, col0 + ncols) of the presorted matrices of the
+        tier the progression's ``last_block_tier`` names (a decimation mip,
+        or the main layout) in one launch (``_render_block_columns_fields``),
+        added to the frame's image and its dropped count (summed on the
+        device).  Returns the updated ``first_block``."""
+        tier = self._block_tier()
         with self._render_timer:
             im, dropped = _render_block_columns_fields(
-                store.presorted_fields(),
-                store.presorted_values_cm_for(self._buffer_name),
-                store.presorted_group_buckets, self._feed_cull_mask(),
-                matrix, scale, col0, int(self._giant_bucket),
+                tier.fields(), tier.values_cm_for(self._buffer_name),
+                tier.group_buckets, self._feed_cull_mask(tier), matrix,
+                scale, col0, int(self._giant_bucket),
                 resolution=self._resolution, width=ncols,
                 depth_channel=self._depth_channel)
             self.last_column_ranges.append((col0, ncols))
@@ -382,21 +388,22 @@ class SPHRenderer:
                 self._image = self._image + im
         return first_block
 
-    def _feed_cull_mask(self):
-        """(n_groups, pad_group) f32 cull mask, rebuilt only when the cell
-        selection changes; None without culling."""
+    def _feed_cull_mask(self, tier):
+        """(n_groups, pad_group) f32 cull mask of ``tier``
+        (``store.PresortedMipTier``), rebuilt only when the cell selection
+        changes; None without culling."""
         prog = self._render_progression
         if prog.get_selected_cell_mask() is None:
-            self._fields_mask = None
+            self._fields_masks = {}
             return None
-        store = self._store
         gen = getattr(prog, "selection_generation", None)
-        if self._fields_mask is None or self._fields_mask[0] != gen:
-            G = store.presorted_layout.pad_group
-            mask = self._cell_table[store.cell_ids_presorted.long()].to(
-                torch.float32).reshape(store.n_presorted // G, G)
-            self._fields_mask = (gen, mask)
-        return self._fields_mask[1]
+        got = self._fields_masks.get(tier)
+        if got is None or got[0] != gen:
+            G = tier.layout.pad_group
+            mask = self._cell_table[tier.cell_ids.long()].to(
+                torch.float32).reshape(tier.n_out // G, G)
+            got = self._fields_masks[tier] = (gen, mask)
+        return got[1]
 
     def pieces(self) -> list:
         """The ``piece`` argument of each ``splat_atlas_fields`` launch of an
@@ -416,16 +423,15 @@ class SPHRenderer:
         """Sort-free EXPORT: the piece loop over group offsets.  Each piece
         launch has its own spill budget, so the piecing decides ``dropped``
         as in the reference."""
-        store = self._store
-        fields = store.presorted_fields()
-        values_cm = store.presorted_values_cm_for(self._buffer_name)
-        gb = store.presorted_group_buckets
-        mask = self._feed_cull_mask()
+        tier = self._store.main_tier
+        fields = tier.fields()
+        values_cm = tier.values_cm_for(self._buffer_name)
+        mask = self._feed_cull_mask(tier)
         for piece in self.pieces():
             with self._render_timer:
                 im, dropped = splat_atlas.splat_atlas_fields(
-                    fields, values_cm, matrix, self._resolution, scale, gb,
-                    mask=mask, depth_channel=self._depth_channel,
+                    fields, values_cm, matrix, self._resolution, scale,
+                    tier.group_buckets, mask=mask, depth_channel=self._depth_channel,
                     piece=piece, giants=self._giant_bucket)
                 self._dropped_splats = dropped
                 if first_block:

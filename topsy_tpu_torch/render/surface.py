@@ -1,14 +1,15 @@
 """Occlusion (surface) renderer: front-most-fragment semantics.
 
 Counterpart of ``SurfaceSPHRenderer`` in ``topsy_tpu/render/surface.py``
-over the column path: particles above a density-percentile cut render as
-hemispheres with a greater-compare depth test; the output channels are
-(quantity value, surface depth).  Every frame activates the columns
-progression (as the reference does even for EXPORT), plans the exact dense
-giant layer once per view, and renders each column range in one launch
-through ``zsplat_atlas`` in group-axis chunks of at most
+over the column path of the store's presort and its decimation-mip tiers:
+particles above a density-percentile cut render as hemispheres with a
+greater-compare depth test; the output channels are (quantity value,
+surface depth).  Every frame activates the columns progression (as the
+reference does even for EXPORT), plans the exact dense giant layer once per
+view, and renders each column range of the tier its block names in one
+launch through ``zsplat_atlas`` in group-axis chunks of at most
 ``config.SPLAT_COLUMNS_GROUP_CAP`` groups, combined by max-compositing.
-EXPORT renders every column.  CHANGE and REFINE frames (the interactive
+EXPORT renders every particle once (each tier's own columns).  CHANGE and REFINE frames (the interactive
 surface) render the progression's ranges barrier-free with deferred timing
 (the frame clock, as ``render/sph.py``); a REFINE frame continues the image
 and keeps the view's giant plan, and the giant layer is composited again
@@ -229,27 +230,21 @@ class SurfaceSPHRenderer(SPHRenderer):
 
     def _render_columns_surface(self, matrix, scale, cut, col0: int,
                                 ncols: int, first_block: bool) -> bool:
-        """One column launch over columns [col0, col0 + ncols) of the main
-        presort layout (the host layout has no decimation tiers), added to
-        the frame's image by max-compositing and to its dropped count (on
-        the device).  Returns the updated ``first_block``."""
-        tier = self._render_progression.last_block_tier
-        if tier != 0:
-            raise NotImplementedError(
-                f"decimation tier {tier}: the column mips are ROADMAP item "
-                "M9b")
-        store = self._store
+        """One column launch over columns [col0, col0 + ncols) of the flat
+        presorted arrays of the tier the progression's ``last_block_tier``
+        names (a decimation mip, or the main layout), added to the frame's
+        image by max-compositing and to its dropped count (on the device).
+        Returns the updated ``first_block``."""
+        tier = self._block_tier()
         culling = self._render_progression.get_selected_cell_mask() is not None
         with self._render_timer:
             im, dropped = _render_block_columns_surface(
-                store.pos_smooth_presorted,
-                store.presorted_values_for(self._buffer_name),
-                store.presorted_buckets,
-                store.cell_ids_presorted if culling else None,
+                tier.pos_smooth, tier.values_for(self._buffer_name),
+                tier.buckets, tier.cell_ids if culling else None,
                 self._cell_table if culling else None,
                 matrix, scale, cut, col0, int(self._giant_bucket),
                 resolution=self._resolution, width=ncols,
-                pad_group=store.presorted_layout.pad_group)
+                pad_group=tier.layout.pad_group)
             self.last_column_ranges.append((col0, ncols))
             self._dropped_splats = (dropped if self._dropped_splats is None
                                     else self._dropped_splats + dropped)
