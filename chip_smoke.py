@@ -7,8 +7,9 @@ kernel K1, the CUDA deposit kernel K2 and the CUDA z-buffer kernel K3, into
 build/torch_kernels/; the host presort's native library into
 build/torch_native/), builds the 2^24-particle synthetic snapshot at
 1024x1024 with the (density, mass * quantity) channels — the scene bench.py
-renders — through ``Visualizer(..., device="cuda")``, whose store presorts
-on the card.  Phase P times that device presort (and its decimation-mip
+renders — through ``Visualizer(..., device="cuda")``, whose constructor
+renders the lazy policy's one-shot EXPORT (the per-frame-sorted block
+path, no presort) and whose store then presorts on the card.  Phase P times that device presort (and its decimation-mip
 tier) beside the host presort, checks the layout's invariants on the card
 and the mip tier as exactly its parent's first columns, and fails if the
 scene took the host fallback.  It holds K1 and K2 against their plain
@@ -17,8 +18,9 @@ PyTorch versions on the card at the shapes the EXPORT path gives them
 path (warm-up and timed frames, the SPH image and the presentation image)
 and checks the image against the port's scatter ground truth.  Phase D
 drives bench.py's own path, ``TestDataDeviceLoader`` through a second
-Visualizer: the time to its first EXPORT image, its EXPORT frames and the
-image against the scatter truth.  On the scene's Visualizer it drives the
+Visualizer: the time to its first EXPORT image by the lazy policy (the
+sorted block path) and with the presort built first, its EXPORT frames and
+the image against the scatter truth.  On the scene's Visualizer it drives the
 interactive path (phase I): K1 and K2 against their plain versions, each
 call timed alone beside its plain version and its bound, on column slices
 of the main layout (one quantum wide, three, the REFINE launch above the
@@ -46,7 +48,25 @@ scatter-max ground truth; and drives the interactive surface (phase SI:
 K3 on main-layout slices, its REFINE launch and the mip tier's CHANGE
 launch, five views timed by the frame clock, the completed image against
 EXPORT, and a zoomed-out view with the surface giant layer against the
-scatter truth).  It prints:
+scatter truth).  Phases L1-L5 drive the block paths: a fresh renderer's
+one-shot EXPORT through the sorted path (K2 at G = 512 with 64-row windows
+and tier 2 at G = 64, every call held against its plain version, the
+image against the scatter truth and the presorted EXPORT, its time beside
+the presort plus the presorted frame, the dense giant layer of each of its
+pieces timed alone, then the second EXPORT presorts), small scenes (2^16
+and 2^13 particles at 256^2: K2 at G = 128 and 64, tier 2 at 16, held per
+call), CHANGE and REFINE frames of the scene without the column
+progression (a barrier after each block, per-block CUDA-event times, to
+completion, against EXPORT; K2 at G = 128 and tier 2 at 16 held on every
+call of the first two frames) and the surface scatter fallback against the
+column path's surface image.  Phase A times the exact device kNN
+(``ops/knn_device.py``, 64 neighbours) on the scene's first 2^18 to 2^24
+positions, each of its passes apart, holds its peak allocation under its
+memory bound, holds it at 2^20 against the native host kNN and a KD-tree,
+and
+times an ``ArrayDataLoader`` Visualizer over 2^22 positions without
+smoothing lengths to its first image, against its scatter truth.  It
+prints:
 
 * the card's name and power limit (nvidia-smi);
 * ptxas' registers, stack and spills for every K2 and K3 kernel
@@ -76,6 +96,9 @@ scatter truth).  It prints:
   for K1 and K2 also every interactive call of phase I1 and every timed
   call of phase M (C = 3, the depth channel), its time, its plain
   version's and its bound; for K3 every timed call of phases S2 and SI;
+  and K2 once more for each block path of phase L (``sorted``,
+  ``sorted_small``, ``sorted_blocks``), with the launches of that path's
+  run and its calls' shapes;
 * last, ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure, so the script exits nonzero and prints no
@@ -90,6 +113,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 N_PARTICLES = 1 << 24
 RESOLUTION = 1024
@@ -125,6 +149,9 @@ K2_OPS_PER_HAT_LINE = 3
 SURFACE_CUTS = (("cut50", 50.0), ("cut0", 0.0))
 # the periodic TestDataLoader's box (loaders.TestDataLoader(periodic=True))
 PERIODICITY = 100.0
+# phase A runs the device kNN at 2^24 only when 2^22's time predicts it
+# inside this many milliseconds
+KNN_BUDGET_MS = 120_000.0
 
 
 def fail(msg: str):
@@ -186,7 +213,9 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
 def build_scene(dev):
     """The smoke scene, ``bench.py``'s: the seeded 2^24-particle
     TestDataLoader snapshot at 1024x1024, (density, mass * quantity), scale
-    200, through ``Visualizer(..., device=dev)``, one EXPORT frame
+    200, through ``Visualizer(..., device=dev)``, whose constructor renders
+    the one-shot EXPORT of the lazy policy (the sorted block path); the
+    presort is then built explicitly and one presorted EXPORT frame
     rendered.  Returns the Visualizer."""
     from topsy_tpu_torch.loaders import TestDataLoader
     from topsy_tpu_torch.visualizer import (DrawReason, OffscreenCanvas,
@@ -197,6 +226,11 @@ def build_scene(dev):
                      render_resolution=RESOLUTION,
                      canvas_class=OffscreenCanvas, device=dev)
     vis.show_status = False
+    # the constructor's EXPORT (the colormap's autorange) is the lazy
+    # policy's one-shot image: the sorted block path, no presort
+    check(vis.store.presorted_layout is None, "the scene's first EXPORT "
+          "built the presort")
+    vis.store.ensure_presorted()
     vis.quantity_name = "test-quantity"
     vis.scale = 200.0
     vis._sph.render(DrawReason.EXPORT)
@@ -914,9 +948,11 @@ def phase_presort(vis):
 
 def phase_device_loader(dev, scene_sph):
     """Phase D, bench.py's path: ``Visualizer`` over ``TestDataDeviceLoader
-    (2**24, seed=1337)`` on the card at 1024^2.  Times the loader, the store
-    and presort and the first EXPORT frame to the first image (host wall,
-    synchronised), then EXPORT frames (median of 5 after 2 warm-ups), then
+    (2**24, seed=1337)`` on the card at 1024^2.  Times the loader alone,
+    then the Visualizer to its first image (host wall, synchronised) twice:
+    by the lazy policy (the sorted block path, no presort) and with the
+    presort built first (the device presort and a presorted frame, the
+    path of the rest of the phase), then EXPORT frames (median of 5 after 2 warm-ups), then
     the scene's (``scene_sph``) and its own EXPORT frames alternately, both
     held in memory (scene, device loader, scene, device loader: a gap that
     follows the loader is its layout's, one that follows the order is the
@@ -927,20 +963,37 @@ def phase_device_loader(dev, scene_sph):
     import torch
     from topsy_tpu_torch.loaders import TestDataDeviceLoader
     from topsy_tpu_torch.ops import morton_device, splat
+    from topsy_tpu_torch.render import sph as sph_module
     from topsy_tpu_torch.visualizer import OffscreenCanvas, Visualizer
     t0 = time.perf_counter()
     loader = TestDataDeviceLoader(N_PARTICLES, seed=1337, device=dev)
     torch.cuda.synchronize()
     loader_s = time.perf_counter() - t0
     del loader
-    t0 = time.perf_counter()
-    vis = Visualizer(data_loader_class=TestDataDeviceLoader,
-                     data_loader_args=(N_PARTICLES,),
-                     data_loader_kwargs={"seed": 1337, "device": dev},
-                     render_resolution=RESOLUTION,
-                     canvas_class=OffscreenCanvas, device=dev)
-    raw = vis._sph.get_image()
-    first_s = time.perf_counter() - t0
+    def first_image():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vis = Visualizer(data_loader_class=TestDataDeviceLoader,
+                         data_loader_args=(N_PARTICLES,),
+                         data_loader_kwargs={"seed": 1337, "device": dev},
+                         render_resolution=RESOLUTION,
+                         canvas_class=OffscreenCanvas, device=dev)
+        vis._sph.get_image()
+        return vis, time.perf_counter() - t0
+
+    # the first image by the lazy policy (the sorted block path) ...
+    vis, policy_s = first_image()
+    check(vis.store.presorted_layout is None, "D: the policy's first EXPORT "
+          "built the presort")
+    del vis
+    torch.cuda.empty_cache()
+    # ... and with the presort built first (the first EXPORT presorted)
+    use_presorted = sph_module.SPHRenderer._use_presorted
+    sph_module.SPHRenderer._use_presorted = lambda self: True
+    try:
+        vis, first_s = first_image()
+    finally:
+        sph_module.SPHRenderer._use_presorted = use_presorted
     store, sph = vis.store, vis._sph
     check(isinstance(store.presorted_layout,
                      morton_device.DevicePresortedLayout),
@@ -968,8 +1021,11 @@ def phase_device_loader(dev, scene_sph):
     med = statistics.median(frame_ms)
     log(f"phase D: TestDataDeviceLoader({N_PARTICLES}, seed=1337) on the "
         f"card: loader alone {loader_s:.3f} s; Visualizer to the first "
-        f"EXPORT image (loader, store, device presort, first frame and "
-        f"autorange, readback) {first_s:.3f} s wall; n_out "
+        f"EXPORT image (loader, store, first frame and autorange, readback) "
+        f"by the lazy policy (the sorted block path) {policy_s:.3f} s wall, "
+        f"with the presort built first (device presort, presorted frame) "
+        f"{first_s:.3f} s wall: the faster first image is "
+        f"{'the policy' if policy_s < first_s else 'the presort first'}; n_out "
         f"{store.n_presorted}; EXPORT {FRAMES} frames, median {med:.3f} "
         f"ms/frame (frames {[round(t, 3) for t in frame_ms]}), "
         f"{N_PARTICLES / (med / 1e3):.6e} splats/s, last_dropped_splats "
@@ -980,7 +1036,7 @@ def phase_device_loader(dev, scene_sph):
     check(rel <= 1e-2, f"D: density sum rel diff {rel} > 1e-2")
     check(corr > 0.999, f"D: density correlation {corr} <= 0.999")
     return launches, dict(loader_s=loader_s, first_image_s=first_s,
-                          frame_ms=frame_ms, alternate=alternate, rel=rel,
+                          policy_first_image_s=policy_s, frame_ms=frame_ms, alternate=alternate, rel=rel,
                           corr=corr)
 
 
@@ -1575,6 +1631,510 @@ def phase_modes(vis):
     return launches, feed_err, accum_err, times, summary
 
 
+
+# ---------------------------------------------------------------------------
+# phases L (the sorted block paths) and A (the array entry point)
+# ---------------------------------------------------------------------------
+
+K2_ARGS = ("ay_g", "ax_g", "ih_g", "coef_g", "w0", "c0", "ce", "flags")
+
+
+@contextmanager
+def timing_calls(module, *names):
+    """CUDA-event milliseconds of every call of the functions ``names`` of
+    ``module`` while the block is active: {name: [ms per call]}, filled
+    as the block exits (after a device barrier)."""
+    import torch
+    originals = {name: getattr(module, name) for name in names}
+    pending, times = [], {name: [] for name in names}
+
+    def timed(name):
+        fn = originals[name]
+
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            pending.append((name, start, end))
+            return out
+        return call
+
+    for name in names:
+        setattr(module, name, timed(name))
+    try:
+        yield times
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+        torch.cuda.synchronize()
+        for name, start, end in pending:
+            times[name].append(start.elapsed_time(end))
+
+
+@contextmanager
+def recording_k2():
+    """Records the keyword arguments of every K2 call the renderers make
+    (``splat_accum.accumulate_groups``, the wrapper that launches K2 on a
+    CUDA tensor) while the block is active, its starting atlas left out:
+    ``compare_k2`` replays each from a zero atlas."""
+    from topsy_tpu_torch.ops import splat_accum
+    calls = []
+    original = splat_accum.accumulate_groups
+
+    def record(*args, **kw):
+        call = dict(zip(K2_ARGS, args), **kw)
+        call.pop("atlas0", None)
+        calls.append(call)
+        return original(*args, **kw)
+
+    splat_accum.accumulate_groups = record
+    try:
+        yield calls
+    finally:
+        splat_accum.accumulate_groups = original
+
+
+def k2_shape(kw):
+    """The call shape of a recorded K2 call: the main pass, spill tier 2
+    (full-width windows) or spill tier 3 (one-particle groups)."""
+    from topsy_tpu_torch.ops import splat_accum
+    if kw["group"] == 1:
+        return "tier3"
+    if kw.get("window_cols", splat_accum.WINDOW_COLS) != \
+            splat_accum.WINDOW_COLS:
+        return "tier2"
+    return "main"
+
+
+def hold_k2_calls(tag, calls, launches):
+    """Every recorded K2 call of a path against its plain version (within
+    1e-5 of the atlas maximum), the first call of each (shape, G, window
+    rows) timed beside its plain version and bound.  Returns the
+    kernels-line entry of the path (``launches`` from its run; its ``ms``
+    and bound those of its first main pass) and {shape: (G, window rows,
+    groups)} of the calls."""
+    err_max, times, shapes = 0.0, {}, {}
+    for i, kw in enumerate(calls):
+        shape = k2_shape(kw)
+        key = f"{shape}_G{kw['group']}_rows{kw['window_rows']}"
+        err, ref_max, active = compare_k2(f"{tag} call {i} {shape}", kw)
+        err_max = max(err_max, err)
+        shapes.setdefault(shape, set()).add(
+            (kw["group"], kw["window_rows"], kw["flags"].shape[0]))
+        msg = (f"phase {tag} K2 call {i} {shape}: G {kw['group']}, window "
+               f"rows {kw['window_rows']}, cols {kw.get('window_cols', 256)},"
+               f" groups {kw['flags'].shape[0]} (active {active}); within "
+               f"{err:.3e} of max|atlas| {ref_max:.4e}")
+        if key not in times:
+            from topsy_tpu_torch.ops import splat_accum
+            b_ms, b_by, b_detail = k2_bound(kw)
+            times[key] = (
+                timed_ms(lambda: splat_accum.accumulate_groups_cuda(**kw), 5),
+                timed_ms(lambda: splat_accum.accumulate_groups_plain(**kw), 2),
+                b_ms, b_by)
+            t = times[key]
+            msg += (f"; {t[0]:.3f} ms (plain {t[1]:.3f} ms); bound {b_detail}"
+                    f", {t[2] / t[0]:.1%} of it")
+        log(msg)
+    main = next(v for k, v in times.items() if k.startswith("main"))
+    entry = {"launches": launches, "max_abs_err": err_max, "ms": main[0],
+             "plain_ms": main[1], "bound_ms": main[2], "bound_by": main[3],
+             "library_ms": None,
+             "ms_by_call": {k: v[0] for k, v in times.items()},
+             "plain_ms_by_call": {k: v[1] for k, v in times.items()},
+             "bound_ms_by_call": {k: v[2] for k, v in times.items()}}
+    return entry, {k: sorted(v) for k, v in shapes.items()}
+
+
+def fresh_renderer(store, loader, cls=None, **kw):
+    """A renderer of ``cls`` (SPHRenderer) over ``store`` at the scene's
+    resolution and the loader's own initial view."""
+    from topsy_tpu_torch.render.sph import SPHRenderer
+    sph = (cls or SPHRenderer)(store, loader.get_render_progression(),
+                               kw.pop("resolution", RESOLUTION), **kw)
+    sph.position_offset = -loader.get_initial_center()
+    sph.scale = loader.get_initial_view_width()
+    return sph
+
+
+def images_agree(tag, a, b, rel_max, corr_min):
+    """Density channel of ``a`` against ``b``: sum rel diff within
+    ``rel_max``, correlation above ``corr_min``; logs the largest pixel
+    difference too.  Returns (rel, corr)."""
+    import numpy as np
+    a, b = a[..., 0].astype(np.float64), b[..., 0].astype(np.float64)
+    rel = abs(a.sum() / b.sum() - 1.0)
+    corr = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+    diff = float(np.abs(a - b).max() / np.abs(b).max())
+    log(f"phase {tag}: density sum rel diff {rel:.3e}, corr {corr:.7f}, max "
+        f"pixel diff {diff:.3e} of the max")
+    check(np.isfinite(a).all(), f"{tag}: image not finite")
+    check(rel <= rel_max, f"{tag}: density sum rel diff {rel} > {rel_max}")
+    check(corr > corr_min, f"{tag}: correlation {corr} <= {corr_min}")
+    return rel, corr
+
+
+def scatter_truth(store, sph):
+    """``splat_scatter`` of the store's particles at the renderer's view,
+    (res, res, C) numpy."""
+    import numpy as np
+    from topsy_tpu_torch.ops import splat
+    return splat.splat_scatter(
+        store.pos_smooth, store.values_for(sph._buffer_name),
+        sph._matrix().astype(np.float32), sph._resolution,
+        np.float32(sph.scale)).cpu().numpy()
+
+
+def phase_sorted(vis, export_image, view):
+    """Phases L1-L4, the block paths: L1 a fresh renderer over a fresh
+    store of the scene's loader renders its one-shot EXPORT through the
+    per-frame-sorted block path (no presort built), every K2 call of the
+    frame held against its plain version, the frame again with the
+    allocator warm and each piece's dense giant layer (``giant_image`` on
+    the piece's own giants) timed by CUDA events, the image against the
+    scatter truth and the presorted EXPORT image (``export_image``) of
+    ``view`` (rotation, offset, scale), its time beside the presort plus
+    the presorted frame, then its second EXPORT presorts; L3 small scenes
+    (2^16 and 2^13 particles, 256^2) whose sorted path runs K2 at G = 128
+    and 64 and tier 2 at 16; L4 CHANGE and REFINE frames of the scene
+    without the column progression, a barrier after each block, per-block
+    CUDA-event times, until the view completes, against EXPORT, every K2
+    call of its first two frames (blocks of ~2^17 rows: G = 128, tier 2 at
+    16) held against its plain version.  Returns (the kernels-line entries
+    by path, launches by path, a summary dict)."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch import config
+    from topsy_tpu_torch.loaders import TestDataLoader
+    from topsy_tpu_torch.ops import splat_giant
+    from topsy_tpu_torch.render.store import ParticleStore
+    from topsy_tpu_torch.visualizer import DrawReason
+    t_all = time.perf_counter()
+    dev = vis.store.device
+    loader = vis.data_loader
+    entries, launches, summary = {}, {}, {}
+
+    # ---- L1: the one-shot EXPORT through the sorted block path ----------
+    store = ParticleStore(loader, device=dev)
+    store.quantity_name = vis.store.quantity_name
+    sph = fresh_renderer(store, loader)
+    sph.rotation_matrix, sph.position_offset, sph.scale = view
+    check(not sph._use_presorted(), "L1: a fresh renderer would presort")
+    reset_counts()
+    with recording_k2() as calls:
+        oneshot_ms, oneshot_wall, _ = cuda_ms(
+            lambda: sph.render(DrawReason.EXPORT))
+    launches["sorted_export"] = read_counts("sorted EXPORT",
+                                            ("accumulate_groups",))
+    check(store.presorted_layout is None, "L1: the one-shot EXPORT built "
+          "the presort")
+    check(launches["sorted_export"]["splat_feed"] == 0, "L1: the sorted "
+          "path launched the feed kernel")
+    raw = sph.get_image()
+    check(raw.shape == (RESOLUTION, RESOLUTION, 2), f"L1 image {raw.shape}")
+    entries["sorted"], summary["sorted_calls"] = hold_k2_calls(
+        "L1 sorted", calls, launches["sorted_export"]["accumulate_groups"])
+    del calls
+    images_agree("L1 sorted EXPORT against splat_scatter", raw,
+                 scatter_truth(store, sph), 1e-2, 0.999)
+    images_agree("L1 sorted EXPORT against the presorted EXPORT", raw,
+                 export_image, 1e-3, 0.9999)
+    # the same frame again, the allocator warm (the policy would presort),
+    # each piece's dense giant layer (its own giants) timed by CUDA events
+    sph._export_renders = 0
+    sph.invalidate()
+    with timing_calls(splat_giant, "giant_image") as giant_calls:
+        warm_ms, _, _ = cuda_ms(lambda: sph.render(DrawReason.EXPORT))
+    giant_ms = giant_calls["giant_image"]
+    check(len(giant_ms) == launches["sorted_export"]["accumulate_groups"]
+          // 3, f"L1: {len(giant_ms)} giant layers, not one per piece")
+    check(sph._use_presorted(), "L1: the second EXPORT would not presort")
+    presort_ms, _, _ = cuda_ms(store.ensure_presorted)
+    sph.invalidate()
+    presorted_ms, _, _ = cuda_ms(lambda: sph.render(DrawReason.EXPORT))
+    check(store.presorted_layout is not None, "L1: no presort after the "
+          "second EXPORT")
+    images_agree("L1 second EXPORT (presorted) against the scene's",
+                 sph.get_image(), export_image, 1e-4, 0.99999)
+    faster = ("the one-shot sorted EXPORT" if oneshot_ms
+              < presort_ms + presorted_ms else "the presort and its frame")
+    log(f"phase L1: one-shot sorted EXPORT {oneshot_ms:.3f} ms (CUDA events;"
+        f" {oneshot_wall:.3f} ms wall; flat arrays built in it; dropped "
+        f"{sph.last_dropped_splats} in its last piece; again, warm, "
+        f"{warm_ms:.3f} ms, of which the pieces' dense giant layers "
+        f"{[round(t, 3) for t in giant_ms]} ms, {sum(giant_ms):.3f} ms) "
+        f"against the presort "
+        f"{presort_ms:.3f} ms + the presorted EXPORT {presorted_ms:.3f} ms ="
+        f" {presort_ms + presorted_ms:.3f} ms: the faster first image is "
+        f"{faster}")
+    summary.update(oneshot_ms=oneshot_ms, warm_ms=warm_ms,
+                   giant_layers_ms=giant_ms, presort_ms=presort_ms,
+                   presorted_ms=presorted_ms)
+    del sph, store, raw
+    torch.cuda.empty_cache()
+
+    # ---- L3: small scenes, K2 at G = 128 and 64, tier 2 at 16 -----------
+    small_calls, small_launches = [], 0
+    for n, expect_g in ((1 << 16, 128), (1 << 13, 64)):
+        sloader = TestDataLoader(n, seed=1337)
+        sstore = ParticleStore(sloader, device=dev)
+        sstore.quantity_name = "test-quantity"
+        ssph = fresh_renderer(sstore, sloader, resolution=256)
+        reset_counts()
+        with recording_k2() as calls:
+            ssph.render(DrawReason.EXPORT)
+            sraw = ssph.get_image()
+        got = read_counts(f"sorted EXPORT of {n}", ("accumulate_groups",))
+        small_launches += got["accumulate_groups"]
+        groups = sorted({kw["group"] for kw in calls})
+        check(groups == [1, 16, expect_g], f"L3 {n}: K2 group widths "
+              f"{groups}, not [1, 16, {expect_g}]")
+        images_agree(f"L3 {n} particles at 256^2 against splat_scatter",
+                     sraw, scatter_truth(sstore, ssph), 1e-2, 0.999)
+        small_calls += calls
+    entries["sorted_small"], summary["small_calls"] = hold_k2_calls(
+        "L3 small", small_calls, small_launches)
+    del small_calls
+
+    # ---- L4: interactive frames without the column progression ----------
+    config.INTERACTIVE_USE_PRESORTED = False
+    try:
+        sph = fresh_renderer(vis.store, loader)
+        sph.rotation_matrix, sph.position_offset, sph.scale = view
+        block_ms = []
+        launch = sph._launch_block
+
+        def timed_launch(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            im = launch(*args)
+            end.record()
+            block_ms[-1].append((start, end, args[3]))
+            return im
+
+        sph._launch_block = timed_launch
+        frames, held = [], []
+        reason = DrawReason.CHANGE
+        reset_counts()
+        while True:
+            block_ms.append([])
+            if len(frames) < 2:
+                with recording_k2() as calls:
+                    sph.render(reason)
+                held += calls
+            else:
+                sph.render(reason)
+            torch.cuda.synchronize()
+            frames.append((sph._render_timer.last_duration * 1e3,
+                           [(round(s.elapsed_time(e), 3), c)
+                            for s, e, c in block_ms[-1]],
+                           sph.last_render_mass_scale))
+            check(not sph.last_column_ranges, "L4: a column launch")
+            if not sph.needs_refine():
+                break
+            check(len(frames) < 400, "L4: no completion in 400 frames")
+            reason = DrawReason.REFINE
+        launches["sorted_blocks"] = read_counts("block frames",
+                                                ("accumulate_groups",))
+        entries["sorted_blocks"], summary["block_calls"] = hold_k2_calls(
+            "L4 blocks", held, launches["sorted_blocks"]["accumulate_groups"])
+        groups = sorted({kw["group"] for kw in held})
+        check(groups == [1, 16, 128], f"L4: K2 group widths {groups}, not "
+              "[1, 16, 128]")
+        del held, calls
+        blocks = [len(f[1]) for f in frames]
+        log(f"phase L4: {len(frames)} frames to completion, {sum(blocks)} "
+            f"blocks (per frame {blocks}); frame ms by the barriers' CUDA "
+            f"events {[round(f[0], 3) for f in frames]}; per-block (ms, "
+            f"particles) of the first frames {[f[1] for f in frames[:3]]}; "
+            f"mass scale after the first frame {frames[0][2]!r}")
+        check(abs(sph.last_render_mass_scale - 1.0) <= 1e-6,
+              "L4: the completed frame's mass scale is not 1")
+        images_agree("L4 completed block frames against EXPORT",
+                     sph.get_image(), export_image, 1e-3, 0.9999)
+        summary["block_frames"] = [(f[0], len(f[1])) for f in frames]
+    finally:
+        config.INTERACTIVE_USE_PRESORTED = True
+    del sph
+    torch.cuda.empty_cache()
+    log(f"phase L: {time.perf_counter() - t_all:.1f} s")
+    return entries, launches, summary
+
+
+def phase_surface_fallback(vis, cut_percentile=50.0):
+    """Phase L5: the surface scatter fallback (no column progression: the
+    flat arrays through ``zsplat_scatter`` in bucket pieces, truncated
+    giants) against the column path's surface EXPORT image at the scene's
+    view (scale 200, where no giant layer runs), at the surface checks'
+    tolerances (coverage flips <= 1e-4, depth rtol 1e-5 / atol 1e-4, winner
+    values equal on >= 99.9%).  Returns a summary dict."""
+    import numpy as np
+    from topsy_tpu_torch import config
+    from topsy_tpu_torch.ops.splat_giant import BUCKET_DISABLED
+    from topsy_tpu_torch.render.surface import SurfaceSPHRenderer
+    from topsy_tpu_torch.visualizer import DrawReason
+    ssph = vis._sph
+    ssph.set_density_cut_percentile(cut_percentile)
+    ssph.invalidate()
+    ssph.render(DrawReason.EXPORT)
+    check(int(ssph._giant_bucket) == BUCKET_DISABLED,
+          "L5: a giant layer runs at the scene's view")
+    col = ssph.get_image()
+    config.INTERACTIVE_USE_PRESORTED = False
+    try:
+        fb = fresh_renderer(vis.store, vis.data_loader, SurfaceSPHRenderer)
+        fb.rotation_matrix, fb.position_offset, fb.scale = (
+            ssph.rotation_matrix, ssph.position_offset, ssph.scale)
+        fb.set_density_cut_percentile(cut_percentile)
+        fb_ms, _, _ = cuda_ms(lambda: fb.render(DrawReason.EXPORT))
+    finally:
+        config.INTERACTIVE_USE_PRESORTED = True
+    check(not fb.last_column_ranges and fb._surface_giant_layer is None,
+          "L5: the fallback ran the column path")
+    raw = fb.get_image()
+    cov_c, cov_f = col[..., 1] > 0, raw[..., 1] > 0
+    flips = int((cov_c != cov_f).sum())
+    both = cov_c & cov_f
+    d_ok = np.isclose(raw[..., 1][both], col[..., 1][both], rtol=1e-5,
+                      atol=1e-4)
+    v_ok = np.isclose(raw[..., 0][both], col[..., 0][both], rtol=1e-5,
+                      atol=1e-6)
+    log(f"phase L5: surface scatter fallback EXPORT {fb_ms:.3f} ms (CUDA "
+        f"events) at cut percentile {cut_percentile}; covered "
+        f"{int(cov_f.sum())} px, coverage flips {flips}, depth within rtol "
+        f"1e-5/atol 1e-4 on {d_ok.mean():.6f}, winner values agree on "
+        f"{v_ok.mean():.6f} of both-covered pixels, against the column "
+        f"path's EXPORT image")
+    check(cov_f.sum() > 0, "L5: the fallback covers nothing")
+    check(flips <= 1e-4 * cov_c.sum(), f"L5: coverage flips {flips}")
+    check(d_ok.all(), f"L5: depth differs on {int((~d_ok).sum())} pixels")
+    check(v_ok.mean() >= 0.999, f"L5: winner values agree on {v_ok.mean()}")
+    return dict(fallback_ms=fb_ms, flips=flips, covered=int(cov_f.sum()))
+
+
+def phase_arrays(dev, loader, exps=(18, 20, 22, 24), check_exp=20,
+                 array_exp=22):
+    """Phase A, the array entry point: ``knn_smooth_device`` (64
+    neighbours, the array loader's default) on the scene's first 2^18,
+    2^20, 2^22 and, when 2^22 predicts it inside the budget, 2^24
+    positions (CUDA events, each pass apart: the local pass, the
+    selected-tile pass with its proof, the finishing pass, the rest; the
+    share of queries in the finishing pass; the peak allocation held under
+    ``knn_device.device_bytes``);
+    at 2^20 against ``native.knn_smooth`` on every particle and
+    ``scipy.spatial.cKDTree`` on a seeded 10^4 (rel < 1e-4); then an
+    ``ArrayDataLoader`` Visualizer over 2^22 positions without smoothing
+    lengths: its time to the first EXPORT image (the sorted path) and the
+    image against ``splat_scatter`` of the same smoothing.  Returns a
+    summary dict."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+    from topsy_tpu_torch import native
+    from topsy_tpu_torch.loaders import ArrayDataLoader
+    from topsy_tpu_torch.ops import knn_device
+    from topsy_tpu_torch.visualizer import OffscreenCanvas, Visualizer
+    t_all = time.perf_counter()
+    nn = 64
+    passes = ("_local_pass", "_tiled_kth_d2", "_brute_kth_d2")
+    pos_all = loader.get_positions()
+    summary = {}
+    for i, k in enumerate(exps):
+        n = 1 << k
+        if i and 4.5 * summary["knn_ms"][exps[i - 1]] > KNN_BUDGET_MS:
+            log(f"phase A: knn_smooth_device at 2^{k} skipped: 2^"
+                f"{exps[i - 1]} took {summary['knn_ms'][exps[i - 1]]:.1f} ms,"
+                f" so 2^{k} would pass the {KNN_BUDGET_MS / 1e3:.0f} s budget")
+            continue
+        pos = torch.from_numpy(np.ascontiguousarray(pos_all[:n])).to(dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with timing_calls(knn_device, *passes) as pass_ms:
+            ms, wall, (h, stats) = cuda_ms(
+                lambda: knn_device.knn_smooth_device_stats(pos, nn))
+        peak = torch.cuda.max_memory_allocated() - base
+        bound_b = knn_device.device_bytes(n)
+        check(bool(torch.isfinite(h).all()) and bool((h > 0).all()),
+              f"A: smoothing lengths at 2^{k} not finite and positive")
+        check(peak <= bound_b, f"A: the device kNN at 2^{k} allocated "
+              f"{peak} bytes, over its bound {bound_b}")
+        split = {p: sum(v) for p, v in pass_ms.items()}
+        split["_tiled_kth_d2"] -= split["_local_pass"]
+        split = {"local": split["_local_pass"],
+                 "selected": split["_tiled_kth_d2"],
+                 "finishing": split["_brute_kth_d2"]}
+        split["sort_and_rest"] = ms - sum(split.values())
+        summary.setdefault("knn_ms", {})[k] = ms
+        summary.setdefault("knn_split_ms", {})[k] = split
+        summary.setdefault("knn_finishing", {})[k] = stats["finishing"] / n
+        summary.setdefault("knn_peak_bytes", {})[k] = (peak, bound_b)
+        log(f"phase A: knn_smooth_device 2^{k} = {n} positions, {nn} "
+            f"neighbours: {ms:.3f} ms (CUDA events; {wall:.3f} ms wall); "
+            f"passes (CUDA events) {json.dumps(split)} ms; "
+            f"blocks {stats['blocks']}, {stats['selected_blocks']} took the "
+            f"selected-tile pass, {stats['finishing']} queries "
+            f"({stats['finishing'] / n:.4%}) the finishing pass; peak device "
+            f"allocation {peak / 2**30:.3f} GiB above its input, "
+            f"{peak / bound_b:.1%} of its bound "
+            f"(knn_device.device_bytes) {bound_b / 2**30:.3f} GiB")
+        if k == check_exp:
+            host = pos_all[:n]
+            t0 = time.perf_counter()
+            h_native = native.knn_smooth(host, nn)
+            native_s = time.perf_counter() - t0
+            check(h_native is not None, "A: the native kNN did not build")
+            got = h.cpu().numpy()
+            rel = float((np.abs(got - h_native) / h_native).max())
+            rng = np.random.RandomState(1337)
+            q = rng.choice(n, 10_000, replace=False)
+            t0 = time.perf_counter()
+            d, _ = cKDTree(host).query(host[q], k=nn + 1)
+            kd_s = time.perf_counter() - t0
+            rel_kd = float((np.abs(got[q] - 0.5 * d[:, -1])
+                            / (0.5 * d[:, -1])).max())
+            log(f"phase A: at 2^{k} against native.knn_smooth ({native_s:.3f}"
+                f" s wall on the host) max rel diff {rel:.3e} over every "
+                f"particle; against cKDTree ({kd_s:.3f} s) on 10^4 seeded "
+                f"particles {rel_kd:.3e}")
+            check(rel < 1e-4, f"A: against the native kNN rel {rel}")
+            check(rel_kd < 1e-4, f"A: against cKDTree rel {rel_kd}")
+            summary.update(native_s=native_s, native_rel=rel, kd_rel=rel_kd)
+        del pos, h
+        torch.cuda.empty_cache()
+
+    n = 1 << array_exp
+    pos = np.ascontiguousarray(pos_all[:n])
+    qty = np.sin(pos[:, 0]).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avis = Visualizer(data_loader_class=ArrayDataLoader,
+                      data_loader_args=(pos,),
+                      data_loader_kwargs={"quantities": {"q": qty},
+                                          "device": dev},
+                      render_resolution=RESOLUTION,
+                      canvas_class=OffscreenCanvas, device=dev)
+    raw = avis._sph.get_image()
+    first_s = time.perf_counter() - t0
+    check(avis.store.presorted_layout is None, "A: the array Visualizer's "
+          "first EXPORT built the presort")
+    rel, corr = images_agree(
+        "A array loader's first EXPORT against splat_scatter", raw,
+        scatter_truth(avis.store, avis._sph), 1e-2, 0.999)
+    log(f"phase A: ArrayDataLoader({n} positions, no smoothing lengths) "
+        f"Visualizer to its first EXPORT image (device kNN, cells, store, "
+        f"the sorted EXPORT, autorange, readback) {first_s:.3f} s wall; "
+        f"{time.perf_counter() - t_all:.1f} s")
+    summary.update(array_first_image_s=first_s, array_rel=rel,
+                   array_corr=corr)
+    del avis
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1746,6 +2306,9 @@ def main() -> int:
           f"presentation image {pres.shape} {pres.dtype}")
     check(pres[..., :3].std() > 0, "presentation image is constant")
 
+    export_image = raw
+    view = (np.array(sph.rotation_matrix), np.array(sph.position_offset),
+            sph.scale)
     del truth, ps, vals
 
     # ---- phase D: the device loader, bench.py's path ------------------------
@@ -1761,6 +2324,11 @@ def main() -> int:
     mlaunches, m_feed_err, m_accum_err, mtimes, msummary = phase_modes(vis)
     feed_err = max(feed_err, m_feed_err)
     accum_err = max(accum_err, m_accum_err)
+
+    # ---- phases L1-L4: the block paths over the scene's loader and store ---
+    lentries, llaunches, lsummary = phase_sorted(vis, export_image, view)
+    accum_err = max(accum_err, *(e["max_abs_err"] for e in lentries.values()))
+    del export_image
 
     # ---- phase S1: the surface mode on the same Visualizer -----------------
     t0 = time.perf_counter()
@@ -2116,10 +2684,16 @@ def main() -> int:
     si_summary["giant_scale"] = zs
     vis.scale = sscale0
 
+    # ---- phase L5: the surface scatter fallback -----------------------------
+    lsummary["surface_fallback"] = phase_surface_fallback(vis)
+
+    # ---- phase A: the array entry point and its smoothing lengths ----------
+    asummary = phase_arrays(dev, vis.data_loader)
+
     # ---- phase 8: kernels --------------------------------------------------
     # launches per path, each counted from 0 just before its path ran
     paths = {"export": launches, "device_loader_export": dlaunches,
-             "interactive": ilaunches, **mlaunches,
+             "interactive": ilaunches, **mlaunches, **llaunches,
              **{f"surface_export_{k}": v for k, v in slaunches.items()},
              **{f"surface_interactive_{k}": v
                 for k, v in si_launches.items()}}
@@ -2172,12 +2746,21 @@ def main() -> int:
          "ms_by_shape": k3_ms, "plain_ms_by_shape": k3_plain_ms,
          "bound_ms_by_shape": {k: v[0] for k, v in k3_bound.items()}},
     ]
+    # K2 on the block paths, one entry per path: its launches in the path's
+    # run, its calls held and the first call of each shape timed
+    for path, entry in lentries.items():
+        kernels.append({"name": f"accumulate_groups[{path}]",
+                        "route": "cuda",
+                        "source": "topsy_tpu_torch/csrc/splat_accum.cu",
+                        "replaces": "topsy_tpu/ops/splat_pallas.py:317",
+                        **entry})
     interactive = {k: v for k, v in isummary.items()
                    if k not in ("feed_t", "accum_t")}
     log(f"summary: presort {json.dumps(psummary)}; device loader "
         f"{json.dumps(dsummary)}; interactive {json.dumps(interactive)}; "
         f"modes {json.dumps(msummary)}; interactive surface "
-        f"{json.dumps(si_summary)}")
+        f"{json.dumps(si_summary)}; block paths {json.dumps(lsummary)}; "
+        f"arrays {json.dumps(asummary)}")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

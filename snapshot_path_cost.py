@@ -8,7 +8,10 @@ at 1024^2 (``chip_smoke.py``'s), prints one JSON line with:
 
 * ``first_image_s``: host wall time from ``Visualizer(...)`` to the first
   EXPORT image read back (the loader's host generation, the store, the
-  presort, the first frame and the colormap's autorange), synchronised;
+  first frame and the colormap's autorange), synchronised; the first
+  frame renders what the checkout's EXPORT policy picks (since the lazy
+  policy: the sorted block path, no presort; before it: the presort and
+  the presorted frame);
 * per interactive view (a 0.05 rad drag, then a CHANGE draw and the REFINE
   draws that complete it, seven views, the first two warm-ups) each
   frame's milliseconds by the frame clock (first launch to the end of the

@@ -5,6 +5,8 @@ import numpy as np
 import pytest
 
 from topsy_tpu import config
+from topsy_tpu.ops import knn_device as r_knn_device
+from topsy_tpu.render import store as r_store
 from topsy_tpu.ops import morton_device as r_morton_device
 from topsy_tpu.ops import splat as r_splat
 from topsy_tpu.ops import splat_atlas as r_atlas
@@ -14,7 +16,10 @@ from topsy_tpu.ops import zsplat as r_zsplat
 from topsy_tpu.ops import zsplat_atlas as r_zatlas
 from topsy_tpu.ops import zsplat_pallas as r_zpallas
 
+from topsy_tpu_torch import config as p_config
 from topsy_tpu_torch.color import maps as p_maps
+from topsy_tpu_torch.ops import knn_device as p_knn_device
+from topsy_tpu_torch.render import store as p_store
 from topsy_tpu_torch.ops import morton_device as p_morton_device
 from topsy_tpu_torch.ops import splat as p_splat
 from topsy_tpu_torch.ops import splat_accum as p_accum
@@ -29,7 +34,12 @@ from topsy_tpu.ops import stats as r_stats
 PINNED = [
     (p_splat, r_splat, ["H_MIN", "H_MAX", "H_TRUNC", "WINDOW"]),
     (p_atlas, r_atlas, ["GROUP", "FOOT", "BAND", "COL_PAD", "ROW_PAD",
-                        "WINDOW_COLS", "TIER3_PALLAS_MIN_GROUPS"]),
+                        "WINDOW_ROWS", "WINDOW_COLS",
+                        "TIER3_PALLAS_MIN_GROUPS"]),
+    (p_store, r_store, ["PAD_MULTIPLE", "MIN_BUCKET", "MAX_BUCKET"]),
+    (p_knn_device, r_knn_device, ["BLOCK", "TILE"]),
+    (p_config, config, ["INTERACTIVE_USE_PRESORTED",
+                        "MAX_PARTICLES_PER_EXPORT_RENDERCALL"]),
     (p_accum, r_pallas, ["FLAG_INACTIVE", "FLAG_ALL_TINY", "FLAG_POLY",
                          "FLAG_MIXED", "FLAG_MASKED", "SIZE_CLASSES",
                          "FULL_CLASS", "COL_ALIGN", "PROFILE_COLS",
@@ -119,3 +129,31 @@ def test_packaged_luts_match_matplotlib():
     for name in stored.files:
         ref = matplotlib.colormaps[name](np.linspace(0.001, 0.999, n))
         np.testing.assert_array_equal(stored[name], ref.astype(np.float32))
+
+
+def test_sorted_path_literals_match_reference():
+    """The sorted path's group widths by particle count (512 from 2^18, 128
+    from 2^14, else 64) and the finishing pass's chunk (4096) are literals
+    inside the reference's functions."""
+    import inspect
+    src = inspect.getsource(r_atlas.splat_atlas)
+    assert "if n >= 1 << 18:" in src and "elif n >= 1 << 14:" in src
+    assert "G = 128" in src and "G = 64" in src
+    assert [p_atlas.sorted_group_size(n) for n in
+            (1, (1 << 14) - 1, 1 << 14, (1 << 18) - 1, 1 << 18)] == \
+        [64, 64, 128, 128, 512]
+    assert r_knn_device._BRUTE_CHUNK == p_knn_device.BRUTE_CHUNK == 4096
+
+
+def test_knn_device_max_n_is_the_ports_own():
+    """The port routes the array loader's kNN to the card by a memory
+    bound of its own (``knn_device.device_bytes``, held against the card's
+    peak allocation in chip_smoke.py phase A), not by the reference's
+    2^18, which a TPU runtime's crash set: 2^24 positions fit 16 GiB, and
+    the bound grows linearly in n."""
+    assert config.KNN_DEVICE_MAX_N == 1 << 18
+    assert not hasattr(p_config, "KNN_DEVICE_MAX_N")
+    assert p_knn_device.device_bytes(1 << 24) <= 16 << 30
+    assert p_knn_device.device_bytes(1 << 25) \
+        - p_knn_device.device_bytes(1 << 24) \
+        == p_knn_device.BYTES_PER_PARTICLE << 24

@@ -2,7 +2,8 @@
 imports nothing of topsy_tpu); each copy must equal the original: the
 restated config constants, the world-to-clip matrix, the draw reasons, the
 kernel tables, the synthetic snapshot (bit for bit, with and without
-cells), the host presort, the progressions' block sequences, the cell
+cells), the array loader with given smoothing lengths, the native kNN
+smoothing, the host presort, the progressions' block sequences, the cell
 layout and the scalebar units.  Exact equality throughout: the copies run
 the same numpy code."""
 
@@ -13,6 +14,7 @@ from topsy_tpu import camera as r_camera
 from topsy_tpu import config as r_config
 from topsy_tpu import drawreason as r_dr
 from topsy_tpu import loaders as r_loaders
+from topsy_tpu import native as r_native
 from topsy_tpu import progression as r_prog
 from topsy_tpu import units as r_units
 from topsy_tpu.ops import kernels as r_kernels
@@ -22,6 +24,7 @@ from topsy_tpu_torch import camera as p_camera
 from topsy_tpu_torch import config as p_config
 from topsy_tpu_torch import drawreason as p_dr
 from topsy_tpu_torch import loaders as p_loaders
+from topsy_tpu_torch import native as p_native
 from topsy_tpu_torch import progression as p_prog
 from topsy_tpu_torch import units as p_units
 from topsy_tpu_torch.ops import kernels as p_kernels
@@ -47,7 +50,8 @@ def layouts(loaders):
 def _config():
     names = [n for n in vars(p_config) if n.isupper()]
     assert len(names) > 20
-    assert {"COLUMN_MIP_FLOOR_TARGET", "COLUMN_MIP_MAX_TIERS"} <= set(names)
+    assert {"COLUMN_MIP_FLOOR_TARGET", "COLUMN_MIP_MAX_TIERS",
+            "INTERACTIVE_USE_PRESORTED"} <= set(names)
     for n in names:
         assert getattr(p_config, n) == getattr(r_config, n), n
 
@@ -166,6 +170,36 @@ def _cells(loaders):
     np.testing.assert_array_equal(a.interleave_order(), b.interleave_order())
 
 
+def _array_loader():
+    """Given smoothing lengths: nothing is computed, every array equal (the
+    within-cell shuffle draws from numpy's global generator, seeded alike
+    for both)."""
+    ref_l = r_loaders.TestDataLoader(N)
+    args = (ref_l.get_positions(),)
+    kw = dict(mass=ref_l.get_mass(), smooth=ref_l.get_smooth(),
+              quantities={"q": ref_l.get_named_quantity("test-quantity")})
+    np.random.seed(3)
+    ref = r_loaders.ArrayDataLoader(*args, **kw)
+    np.random.seed(3)
+    port = p_loaders.ArrayDataLoader(*args, device="cpu", **kw)
+    for get in ("get_positions", "get_smooth", "get_mass", "get_pos_smooth",
+                "get_cell_ids"):
+        a, b = getattr(port, get)(), getattr(ref, get)()
+        assert a.dtype == b.dtype, get
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(port.get_named_quantity("q"),
+                                  ref.get_named_quantity("q"))
+
+
+def _native_knn():
+    pos = r_loaders.TestDataLoader(20_000).get_positions()
+    a, b = p_native.knn_smooth(pos, 32), r_native.knn_smooth(pos, 32)
+    if b is None:
+        assert a is None
+        return
+    np.testing.assert_array_equal(a, b)
+
+
 def _units():
     for u in ("km", "au", "pc", "kpc", "Mpc", "3.085678e+19 m"):
         assert p_units.unit_in_units(u, "kpc") == r_units.unit_in_units(u,
@@ -173,7 +207,8 @@ def _units():
 
 
 CASES = ["config", "camera", "drawreason", "kernels", "loader",
-         "loader_cells", "presort", "progressions", "cells", "units"]
+         "loader_cells", "array_loader", "native_knn", "presort",
+         "progressions", "cells", "units"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -184,6 +219,8 @@ def test_copy_matches_reference(name, loaders, layouts, monkeypatch):
      "kernels": _kernels,
      "loader": lambda: _loader(loaders, False),
      "loader_cells": lambda: _loader(loaders, True),
+     "array_loader": _array_loader,
+     "native_knn": _native_knn,
      "presort": lambda: _presort(layouts),
      "progressions": lambda: _progressions(loaders, layouts, monkeypatch),
      "cells": lambda: _cells(loaders),

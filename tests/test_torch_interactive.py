@@ -73,6 +73,9 @@ def _port(n=N, **kw):
 
 def _quantum_columns(vis, widths):
     store = vis.store
+    # the Visualizer's first EXPORT took the sorted block path (the lazy
+    # policy) and built no presort: build it, as a CHANGE frame would
+    store.ensure_presorted()
     prog = _QuantumColumns(store.presorted_layout.real_per_column, widths,
                            cell_layout=getattr(vis._sph.render_progression,
                                                "cell_layout", None))

@@ -1,8 +1,11 @@
-"""The PyTorch port imports and renders every mode (univariate EXPORT,
-CHANGE and REFINE frames, surface EXPORT and CHANGE frames, rgb, rgb-hdr,
-bivariate, the depth pick and periodic tiling), presorts on the device and
-renders a device loader's snapshot from a decimation-mip tier, with jax and
-topsy_tpu made unimportable, and its sources import neither."""
+"""The PyTorch port imports and renders every mode (univariate EXPORT
+through the sorted block path and the presort, CHANGE and REFINE frames,
+surface EXPORT and CHANGE frames, rgb, rgb-hdr, bivariate, the depth pick
+and periodic tiling), presorts on the device and
+renders a device loader's snapshot from a decimation-mip tier, computes
+smoothing lengths (the device kNN on the CPU, an ArrayDataLoader's native
+kNN) and renders them through the scatter backend, with jax and topsy_tpu
+made unimportable, and its sources import neither."""
 
 import os
 import re
@@ -25,6 +28,17 @@ vis = topsy_tpu_torch.test(2000, render_resolution=64, device="cpu",
 vis.show_status = False
 im = vis.get_sph_image()
 assert im.shape == (64, 64) and np.isfinite(im).all() and im.sum() > 0
+assert vis.store.presorted_layout is None     # the sorted block path
+from topsy_tpu_torch.loaders import ArrayDataLoader
+from topsy_tpu_torch.ops.knn_device import knn_smooth_device
+pos = vis.data_loader.get_positions()
+h = knn_smooth_device(pos, 32, device="cpu").numpy()
+assert h.shape == (2000,) and (h > 0).all()
+avis = topsy_tpu_torch.visualizer.Visualizer(
+    data_loader_class=ArrayDataLoader, data_loader_args=(pos,),
+    data_loader_kwargs={"device": "cpu"}, render_resolution=64,
+    device="cpu", canvas_class=OffscreenCanvas, splat_backend="scatter")
+assert np.isfinite(avis._sph.get_image()).all()
 pres = vis.get_sph_presentation_image()
 assert pres.shape == (64, 64, 4) and pres.dtype == np.uint8
 from topsy_tpu_torch.drawreason import DrawReason

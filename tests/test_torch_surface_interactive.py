@@ -201,7 +201,8 @@ def test_refine_chain_and_deferred_timing(monkeypatch):
     """A surface CHANGE draw leaves a deferred measurement that the
     presentation resolves, requests REFINE draws while incomplete, and the
     canvas runs them to completion; a frame without the columns
-    progression (the scatter fallback) raises, naming M13."""
+    progression renders the scatter fallback: no column range, a barrier
+    after every block, its time recorded."""
     v = _surface(topsy_tpu_torch.test(N, render_resolution=48,
                                       canvas_class=OffscreenCanvas,
                                       device="cpu"))
@@ -220,8 +221,12 @@ def test_refine_chain_and_deferred_timing(monkeypatch):
     monkeypatch.setattr(topsy_tpu_torch.config, "INTERACTIVE_USE_PRESORTED",
                         False)
     fresh = type(sph)(v.store, v.data_loader.get_render_progression(), 48)
-    with pytest.raises(NotImplementedError, match="M13"):
-        fresh.render(DrawReason.CHANGE)
+    fresh.position_offset, fresh.scale = sph.position_offset, sph.scale
+    fresh.render(DrawReason.CHANGE)
+    assert not fresh.last_column_ranges and fresh._pending_timing_prog is None
+    assert fresh._render_timer.last_duration > 0.0
+    assert fresh._surface_giant_layer is None
+    assert (fresh.get_image()[..., 1] > 0).any()
 
 
 # ---- against the original topsy's committed pixels ---------------------------

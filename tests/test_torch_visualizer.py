@@ -1,6 +1,7 @@
 """The whole slice: topsy_tpu_torch.test(...) through the presorted EXPORT
-path, against the committed golden render and against the reference
-visualizer's own presorted feed path.
+path (its second EXPORT: the constructor's first takes the sorted block
+path by the lazy policy), against the committed golden render and against
+the reference visualizer's own presorted feed path.
 
 Tolerances: the golden values use tests/test_golden.py's; the image
 against the reference uses the cross-engine bounds of
@@ -34,6 +35,10 @@ def port():
     v = topsy_tpu_torch.test(N, render_resolution=RES,
                              canvas_class=OffscreenCanvas, device="cpu")
     v.show_status = False
+    # the constructor's first export took the sorted path (the lazy
+    # policy, as ``ref``'s): the next one presorts
+    assert v.store.presorted_layout is None
+    v._sph.invalidate()
     return v
 
 

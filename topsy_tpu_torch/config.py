@@ -26,6 +26,11 @@ TEST_DATA_NUM_PARTICLES_DEFAULT = int(1e6)
 MAX_PARTICLES_PER_EXPORT_RENDERCALL = 2**25
 # EXPORT renders are chunked into calls of at most this many particles.
 
+DEFAULT_CELLS_NSIDE = 16
+# spatial grid of the array and pynbody loaders' geometric culling
+
+CELL_LAYOUT_FRACTIONAL_PADDING = 1e-5
+
 # fraction of the frame budget below which no new block is attempted
 FRAME_BUDGET_CUTOFF_FRACTION = 0.4
 

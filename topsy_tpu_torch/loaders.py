@@ -1,18 +1,23 @@
 """Data loaders: host-side snapshot access.
 
-A pinned copy of ``AbstractDataLoader`` and ``TestDataLoader`` from
-``topsy_tpu/loaders.py`` (the loader contract and the seeded
-Gaussian-mixture snapshot, same numpy draws, seeds and constants).  Arrays
-come back in the interleaved LOD order when cells are used
+A pinned copy of ``AbstractDataLoader``, ``TestDataLoader``,
+``PynbodyDataInMemory``, ``PynbodyDataLoader`` and ``_import_pynbody``
+from ``topsy_tpu/loaders.py`` (the loader contract, the seeded
+Gaussian-mixture snapshot with the same numpy draws, seeds and constants,
+and snapshot files through pynbody, imported only when one is loaded).
+Arrays come back in the interleaved LOD order when cells are used
 (``cells.CellLayout.interleave_order``).  ``TestDataDeviceLoader`` is the
 counterpart of the reference's: the same mixture generated on the device
-with torch, adopted in place by the store (``device_arrays``).  Snapshot
-files through pynbody are ROADMAP item M14.
+with torch, adopted in place by the store (``device_arrays``).
+``ArrayDataLoader`` is the reference's, with the smoothing lengths it
+computes on a CUDA device by the exact device kNN, and no quiet fallback
+to the host when that fails.
 """
 
 from __future__ import annotations
 
 import logging
+import pickle
 from abc import ABC, abstractmethod
 
 import numpy as np
@@ -320,3 +325,273 @@ class TestDataDeviceLoader(AbstractDataLoader):
 
     def get_filename(self):
         return "test data (device)"
+
+
+class ArrayDataLoader(AbstractDataLoader):
+    """Loader for raw numpy arrays; no pynbody required.
+
+    Smoothing lengths, when not given, are computed on a CUDA ``device``
+    whose free memory holds the device kNN's bound
+    (``knn_device.fits_device``) by the exact device kNN
+    (``ops/knn_device.py``, pynbody's h = d_nn / 2); otherwise by the
+    native host kNN (``native.knn_smooth``, also exact) or, without a
+    compiler, the multigrid estimate (``ops/knn.py``).  A failure of the
+    device kNN raises: it never continues quietly on the host.
+    """
+
+    def __init__(self, positions: np.ndarray, mass: np.ndarray | None = None,
+                 smooth: np.ndarray | None = None,
+                 quantities: dict[str, np.ndarray] | None = None,
+                 rgb_masses: np.ndarray | None = None,
+                 position_units: str = "kpc",
+                 periodicity_scale: float | None = None,
+                 with_cells: bool = True,
+                 nside: int = config.DEFAULT_CELLS_NSIDE,
+                 n_neighbors: int = 64, device="cuda"):
+        positions = np.asarray(positions, dtype=np.float32)
+        n = len(positions)
+        if mass is None:
+            mass = np.ones(n, dtype=np.float32)
+        if smooth is None:
+            dev = torch.device(device)
+            from .ops import knn_device
+            if dev.type == "cuda" and knn_device.fits_device(n, dev):
+                smooth = knn_device.knn_smooth_device(
+                    positions, n_neighbors, device=dev).cpu().numpy()
+            else:
+                if dev.type == "cuda":
+                    logger.info("ArrayDataLoader: %d positions exceed the "
+                                "device kNN's memory bound; the host kNN "
+                                "computes the smoothing lengths", n)
+                from . import native
+                smooth = native.knn_smooth(positions, n_neighbors)
+                if smooth is None:
+                    from .ops.knn import smoothing_lengths
+                    smooth = smoothing_lengths(
+                        positions, n_neighbors,
+                        device=dev).cpu().numpy()
+        self._quantities = {k: np.asarray(v, dtype=np.float32)
+                            for k, v in (quantities or {}).items()}
+        self._rgb = rgb_masses
+        self._position_units = position_units
+        self._periodicity_scale = periodicity_scale
+
+        order = np.arange(n)
+        if with_cells and n > 0:
+            lo = positions.min() - 1e-3
+            hi = positions.max() + max(1e-3, 1e-5 * np.ptp(positions))
+            self._cell_layout, ordering = CellLayout.from_positions(
+                positions, lo, hi, nside)
+            order = ordering[self._cell_layout.randomize_within_cells()][
+                self._lod_order()]
+
+        self._pos = positions[order]
+        self._mass = np.asarray(mass, dtype=np.float32)[order]
+        self._smooth = np.asarray(smooth, dtype=np.float32)[order]
+        self._quantities = {k: v[order] for k, v in self._quantities.items()}
+        if self._rgb is not None:
+            self._rgb = np.asarray(self._rgb, dtype=np.float32)[order]
+
+    def __len__(self):
+        return len(self._pos)
+
+    def get_positions(self):
+        return self._pos
+
+    def get_smooth(self):
+        return self._smooth
+
+    def get_mass(self):
+        return self._mass
+
+    def get_named_quantity(self, name):
+        return self._quantities[name]
+
+    def get_quantity_names(self):
+        return sorted(self._quantities.keys())
+
+    def get_quantity_label(self, quantity_name):
+        if quantity_name is None:
+            return r"density / $M_{\odot} / \mathrm{kpc}^2$"
+        return quantity_name
+
+    def get_rgb_masses(self):
+        if self._rgb is None:
+            raise ValueError("No RGB band masses were provided to "
+                             "ArrayDataLoader")
+        return self._rgb
+
+    def get_position_units(self):
+        return self._position_units
+
+    def get_periodicity_scale(self):
+        return self._periodicity_scale
+
+
+class PynbodyDataInMemory(AbstractDataLoader):
+    """Loader wrapping an already-open pynbody snapshot (host-side I/O only;
+    reference: loader.py:79-155)."""
+
+    _name_smooth_array = "smooth"
+
+    def __init__(self, snapshot):
+        self.snapshot = snapshot
+        pos = np.asarray(snapshot["pos"])
+        boxmin = pos.min()
+        boxmax = pos.max()
+        boxrange = boxmax - boxmin
+        self._initial_view_width = float(boxrange)
+        boxmin -= config.CELL_LAYOUT_FRACTIONAL_PADDING * boxrange
+        boxmax += config.CELL_LAYOUT_FRACTIONAL_PADDING * boxrange
+        self._cell_layout, ordering = CellLayout.from_positions(
+            pos, boxmin, boxmax, config.DEFAULT_CELLS_NSIDE)
+        self._particle_order = ordering[self._cell_layout.randomize_within_cells()][self._lod_order()]
+        self._position_units = str(snapshot["pos"].units)
+
+    def __len__(self):
+        return len(self.snapshot)
+
+    def get_positions(self):
+        return np.asarray(self.snapshot["pos"]).astype(np.float32)[self._particle_order]
+
+    def get_smooth(self):
+        return np.asarray(self.snapshot[self._name_smooth_array]).astype(np.float32)[self._particle_order]
+
+    def get_mass(self):
+        return np.asarray(self.snapshot["mass"]).astype(np.float32)[self._particle_order]
+
+    def get_named_quantity(self, name):
+        qty = self.snapshot[name]
+        if len(qty.shape) == 2:
+            qty = qty[:, 0]
+        return np.asarray(qty).astype(np.float32)[self._particle_order]
+
+    def get_quantity_names(self):
+        return self.snapshot.loadable_keys()
+
+    def get_quantity_label(self, quantity_name):
+        if quantity_name is None:
+            return r"density / $M_{\odot} / \mathrm{kpc}^2$"
+        lunit = self.snapshot[quantity_name].units.latex()
+        if lunit != "":
+            lunit = "$/" + lunit + "$"
+        return quantity_name + lunit
+
+    def _effective_mass_for_band(self, band):
+        return (10 ** (-0.4 * np.asarray(self.snapshot[band + "_mag"])))[self._particle_order]
+
+    def get_rgb_masses(self):
+        """SSP I/V/U band magnitudes converted to linear 'masses'
+        (reference: loader.py:115-121)."""
+        rgb = np.empty((len(self.snapshot), 3), dtype=np.float32)
+        rgb[:, 0] = self._effective_mass_for_band("I") * 0.5
+        rgb[:, 1] = self._effective_mass_for_band("V")
+        rgb[:, 2] = self._effective_mass_for_band("U")
+        rgb[np.isnan(rgb)] = 0.0
+        return rgb
+
+    def get_position_units(self):
+        return self._position_units
+
+    def get_periodicity_scale(self):
+        if "boxsize" in self.snapshot.properties:
+            return float(self.snapshot.properties["boxsize"].in_units("kpc"))
+        return None
+
+    def get_initial_view_width(self):
+        return self._initial_view_width
+
+    def get_filename(self):
+        return self.snapshot.filename
+
+    def get_cell_ids(self):
+        if self._cell_layout is None:
+            return None
+        return self._cell_layout.cell_ids_per_particle()[self._lod_order()]
+
+
+class PynbodyDataLoader(PynbodyDataInMemory):
+    """Loads a snapshot file via pynbody: physical units, family selection,
+    centering, smoothing-length computation with an on-disk cache
+    (reference: loader.py:157-238)."""
+
+    _name_smooth_array = "topsy_smooth"
+
+    def __init__(self, filename: str, center: str = "none", particle: str = "dm",
+                 take_region=None):
+        pynbody = _import_pynbody()
+        logger.info("Loading %s (center=%s, particle=%s)", filename, center, particle)
+        if take_region is None:
+            snapshot = pynbody.load(filename)
+        else:
+            snapshot = pynbody.load(filename, take_region=take_region)
+        snapshot.physical_units()
+        self.filename = filename
+
+        fam = pynbody.family.get_family(particle)
+        snapshot = snapshot[fam]
+        self._family_name = fam.name
+
+        _ = snapshot["pos"]
+        if np.ptp(snapshot["pos"]) < 1.0:
+            logger.info("Positions span <1 kpc; re-expressing in AU")
+            snapshot.physical_units("au")
+
+        self.snapshot = snapshot
+        self._perform_centering(center)
+        super().__init__(snapshot)
+        self._perform_smoothing()
+
+    @property
+    def _smooth_cache_filename(self):
+        return f"{self.filename}-topsy-smooth-{self._family_name}.pkl"
+
+    def _perform_centering(self, center: str):
+        pynbody = _import_pynbody()
+        if center.startswith("halo-"):
+            halo_number = int(center[5:])
+            h = self.snapshot.ancestor.halos()
+            cen = pynbody.analysis.halo.center(h[halo_number], return_cen=True)
+        elif center == "zoom":
+            f_dm = self.snapshot.ancestor.dm
+            cen = pynbody.analysis.halo.center(
+                f_dm[f_dm["mass"] < 1.01 * f_dm["mass"].min()], return_cen=True)
+        elif center == "all":
+            cen = pynbody.analysis.halo.center(self.snapshot, return_cen=True)
+        elif center == "none":
+            cen = np.zeros(3)
+        else:
+            raise ValueError("Unknown centering type")
+        self._initial_center = cen
+
+    def get_initial_center(self):
+        return self._initial_center
+
+    def _perform_smoothing(self):
+        pynbody = _import_pynbody()
+        try:
+            smooth = pickle.load(open(self._smooth_cache_filename, "rb"))
+            if len(smooth) != len(self.snapshot):
+                raise ValueError("Incorrect number of particles in cached smoothing data")
+            self.snapshot[self._name_smooth_array] = smooth
+            logger.info("Loaded cached smoothing lengths")
+        except Exception:
+            logger.info("Computing smoothing lengths (cached for future runs)")
+            self.snapshot[self._name_smooth_array] = pynbody.sph.smooth(self.snapshot)
+            try:
+                pickle.dump(self.snapshot[self._name_smooth_array],
+                            open(self._smooth_cache_filename, "wb"))
+            except IOError:
+                logger.warning("Unable to save smoothing data to disk")
+
+
+def _import_pynbody():
+    try:
+        import pynbody
+    except ImportError as exc:  # pragma: no cover
+        raise ImportError(
+            "pynbody is required to load simulation snapshot files. "
+            "Install it, or use synthetic data via topsy_tpu_torch.test() / "
+            "'test://N'."
+        ) from exc
+    return pynbody

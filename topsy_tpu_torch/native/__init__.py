@@ -1,12 +1,13 @@
-"""Native (C++/OpenMP) host runtime: cell binning, the interleaved LOD order
-and the (smoothing-bucket, Morton) presort.
+"""Native (C++/OpenMP) host runtime: cell binning, the interleaved LOD
+order, the exact kNN smoothing lengths and the (smoothing-bucket, Morton)
+presort.
 
-A pinned copy of ``topsy_tpu/native/__init__.py`` without the kNN entry
-point.  ``_native.cpp`` is compiled with ``g++`` at first use into
-``build/torch_native/`` at the repository root and loaded with ctypes.
-Every entry point returns None when the library cannot be built, and its
-caller then takes the numpy path, which gives the same result: these are
-host-side orderings, not device kernels.
+A pinned copy of ``topsy_tpu/native/__init__.py``.  ``_native.cpp`` is
+compiled with ``g++`` at first use into ``build/torch_native/`` at the
+repository root and loaded with ctypes.  Every entry point returns None
+when the library cannot be built, and its caller then takes the numpy path
+(for the kNN, the ArrayDataLoader's multigrid estimate): these are
+host-side computations, not device kernels.
 """
 
 from __future__ import annotations
@@ -62,6 +63,9 @@ def _load() -> ctypes.CDLL | None:
         lib.interleave_order.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+        lib.knn_smooth.restype = None
+        lib.knn_smooth.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_int, ctypes.c_void_p]
         lib.presort_order.restype = None
         lib.presort_order.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_double,
@@ -122,3 +126,16 @@ def presort_order(pos_smooth: np.ndarray, delta_octave: float):
     lib.presort_order(ps.ctypes.data, n, float(delta_octave),
                       buckets.ctypes.data, order.ctypes.data)
     return buckets, order
+
+
+def knn_smooth(positions: np.ndarray,
+               n_neighbors: int = 64) -> np.ndarray | None:
+    """Exact kNN smoothing lengths, h = 0.5 * d_nn (pynbody convention);
+    None if the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    pos = np.ascontiguousarray(positions, dtype=np.float32)
+    h = np.empty(len(pos), dtype=np.float32)
+    lib.knn_smooth(pos.ctypes.data, len(pos), int(n_neighbors), h.ctypes.data)
+    return h

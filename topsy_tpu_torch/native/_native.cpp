@@ -1,7 +1,7 @@
 // Native host-side runtime of topsy_tpu_torch: the cell sort, the interleaved
-// LOD order and the (smoothing-bucket, Morton) presort, parallelized with
-// OpenMP.  A pinned copy of topsy_tpu/native/_native.cpp without the kNN
-// smoothing (snapshot files are not loaded by the port yet).
+// LOD order, the exact kNN smoothing lengths and the (smoothing-bucket,
+// Morton) presort, parallelized with OpenMP.  A pinned copy of
+// topsy_tpu/native/_native.cpp.
 //
 // Exposed with a plain C ABI for ctypes.
 
@@ -81,6 +81,107 @@ void interleave_order(const int64_t* offsets, const int64_t* lengths,
   std::stable_sort(order, order + n, [&](int64_t a, int64_t b) {
     return keys[a] < keys[b];
   });
+}
+
+// ---------------------------------------------------------------------------
+// Exact k-nearest-neighbour smoothing lengths via a uniform grid with
+// expanding-shell search.  h = 0.5 * distance to the nn-th neighbour,
+// pynbody's convention (nn neighbours within the 2h kernel support).
+// ---------------------------------------------------------------------------
+void knn_smooth(const float* pos, int64_t n, int nn, float* h_out) {
+  if (n == 0) return;
+  float lo[3] = {pos[0], pos[1], pos[2]};
+  float hi[3] = {pos[0], pos[1], pos[2]};
+  for (int64_t i = 0; i < n; ++i)
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = std::min(lo[d], pos[3 * i + d]);
+      hi[d] = std::max(hi[d], pos[3 * i + d]);
+    }
+  double span = 1e-30;
+  for (int d = 0; d < 3; ++d) span = std::max(span, (double)hi[d] - lo[d]);
+  span *= 1.0 + 1e-6;
+
+  // grid sized for ~2-8 particles per cell
+  int nside = (int)std::floor(std::cbrt((double)n / 4.0));
+  nside = std::max(4, std::min(nside, 512));
+  const double cell = span / nside;
+  const int64_t ncell = (int64_t)nside * nside * nside;
+
+  std::vector<int64_t> offsets(ncell + 1, 0), lengths(ncell, 0), order(n);
+  std::vector<int32_t> cell_of(n);
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    int c[3];
+    for (int d = 0; d < 3; ++d) {
+      int v = (int)std::floor((pos[3 * i + d] - lo[d]) / cell);
+      c[d] = std::max(0, std::min(v, nside - 1));
+    }
+    cell_of[i] = c[2] + nside * (c[1] + nside * c[0]);
+  }
+  for (int64_t i = 0; i < n; ++i) lengths[cell_of[i]]++;
+  for (int64_t c = 0; c < ncell; ++c) offsets[c + 1] = offsets[c] + lengths[c];
+  {
+    std::vector<int64_t> cursor(offsets.begin(), offsets.end() - 1);
+    for (int64_t i = 0; i < n; ++i) order[cursor[cell_of[i]]++] = i;
+  }
+
+#pragma omp parallel
+  {
+    std::vector<float> cand;
+    cand.reserve(1024);
+#pragma omp for schedule(dynamic, 256)
+    for (int64_t i = 0; i < n; ++i) {
+      const float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
+      int ci[3];
+      ci[0] = std::max(0, std::min((int)((px - lo[0]) / cell), nside - 1));
+      ci[1] = std::max(0, std::min((int)((py - lo[1]) / cell), nside - 1));
+      ci[2] = std::max(0, std::min((int)((pz - lo[2]) / cell), nside - 1));
+
+      cand.clear();
+      float knn_d2 = -1.0f;  // current nn-th smallest squared distance
+      for (int ring = 0;; ++ring) {
+        if (knn_d2 >= 0.0f && ring > 0) {
+          // all cells within (ring-1) are fully scanned: stop once the
+          // nn-th distance is inside that guaranteed-covered radius
+          double safe = (double)(ring - 1) * cell;
+          if ((double)knn_d2 <= safe * safe) break;
+        }
+        bool any_cell = false;
+        for (int dx = -ring; dx <= ring; ++dx) {
+          int x = ci[0] + dx;
+          if (x < 0 || x >= nside) continue;
+          for (int dy = -ring; dy <= ring; ++dy) {
+            int y = ci[1] + dy;
+            if (y < 0 || y >= nside) continue;
+            const bool face = (std::abs(dx) == ring || std::abs(dy) == ring);
+            for (int dz = -ring; dz <= ring;
+                 dz += (face || ring == 0) ? 1 : 2 * ring) {
+              int z = ci[2] + dz;
+              if (z < 0 || z >= nside) continue;
+              any_cell = true;
+              int64_t cc = z + (int64_t)nside * (y + (int64_t)nside * x);
+              for (int64_t jj = offsets[cc]; jj < offsets[cc + 1]; ++jj) {
+                int64_t j = order[jj];
+                if (j == i) continue;
+                float ddx = pos[3 * j] - px;
+                float ddy = pos[3 * j + 1] - py;
+                float ddz = pos[3 * j + 2] - pz;
+                float v = ddx * ddx + ddy * ddy + ddz * ddz;
+                if (knn_d2 < 0.0f || v < knn_d2) cand.push_back(v);
+              }
+            }
+          }
+        }
+        if ((int64_t)cand.size() >= nn) {
+          std::nth_element(cand.begin(), cand.begin() + (nn - 1), cand.end());
+          knn_d2 = cand[nn - 1];
+          cand.resize(nn);  // keep only survivors for the next rounds
+        }
+        if (!any_cell && ring > 2 * nside) break;  // degenerate safety
+      }
+      h_out[i] = 0.5f * std::sqrt(knn_d2 < 0 ? 0.0f : knn_d2);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 
 Counterpart of ``topsy_tpu/ops/splat.py``: projection, pyramid levels,
 the bit-trick powers of two, the mass-normalisation polynomial, the deposit
-coefficients and ``splat_scatter``, the windowed scatter-add splatter the
-tests hold every other path against.  Host-side kernel tables come from the
-reference's jax-free ``topsy_tpu.ops.kernels``.
+coefficients, the low-rank profiles (``profiles_select``, CIC hats for
+tiny splats), ``splat_scatter``, the windowed scatter-add splatter the
+tests hold every other path against, and ``splat_bruteforce``, the float64
+continuous ideal.  Host-side kernel tables come from the pinned copy
+``ops/kernels``.
 """
 
 from __future__ import annotations
@@ -204,6 +206,35 @@ def hat_profile(t2: torch.Tensor) -> torch.Tensor:
     return torch.clamp(1.0 - torch.sqrt(torch.clamp(t2, min=0.0)), min=0.0)
 
 
+def lowrank_profiles(t2: torch.Tensor, lrk: kernels.LowRankKernel
+                     ) -> torch.Tensor:
+    """The low-rank kernel profiles at squared offsets t2 (units of h^2) by
+    Horner polynomials, zero beyond the support.  Returns (rank,) +
+    t2.shape."""
+    outs = []
+    for k in range(lrk.rank):
+        acc = torch.full_like(t2, float(lrk.coeffs[k][0]))
+        for c in lrk.coeffs[k][1:]:
+            acc = acc * t2 + float(c)
+        outs.append(torch.where(t2 <= kernels.KERNEL_SUPPORT ** 2, acc, 0.0))
+    return torch.stack(outs)
+
+
+def profiles_select(t2: torch.Tensor, tiny: torch.Tensor,
+                    lrk: kernels.LowRankKernel, signed: bool) -> torch.Tensor:
+    """Kernel profiles with the CIC hat substituted for tiny splats (rank 1:
+    the higher profiles are zero there); ``tiny`` broadcasts against t2."""
+    p = lowrank_profiles(t2, lrk)
+    if signed:
+        sign = torch.as_tensor(np.asarray(lrk.signs, np.float32),
+                               device=t2.device)
+        p = p * sign.reshape((-1,) + (1,) * t2.dim())
+    hat = hat_profile(t2)
+    zero = torch.zeros_like(t2)
+    return torch.stack([torch.where(tiny, hat if k == 0 else zero, p[k])
+                        for k in range(lrk.rank)])
+
+
 def splat_scatter(pos_smooth, values, matrix, resolution, scale,
                   extra_mask=None, pyramid: PyramidSpec | None = None,
                   depth_channel=False, chunk: int = 1 << 18):
@@ -288,3 +319,53 @@ def collapse_pyramid(flat_buffer: torch.Tensor,
         up = upsample2x_kind_cm(out, config.PYRAMID_COLLAPSE_FILTER)
         out = levels[l] + up[:, :target, :target]
     return out.permute(1, 2, 0)
+
+
+# ---------------------------------------------------------------------------
+# brute-force float64 ground truth (tests only; small N)
+# ---------------------------------------------------------------------------
+
+def splat_bruteforce(pos_smooth: np.ndarray, values: np.ndarray,
+                     matrix: np.ndarray, resolution: int,
+                     scale: float) -> np.ndarray:
+    """Continuous-ideal splatter in float64 numpy: full resolution, no
+    window, the exact radial kernel, the exact per-footprint normalisation.
+    O(N * footprint); tests only."""
+    pos_smooth = np.asarray(pos_smooth, dtype=np.float64)
+    values = np.asarray(values, dtype=np.float64)
+    xyz1 = np.concatenate([pos_smooth[:, :3], np.ones((len(pos_smooth), 1))],
+                          axis=1)
+    clip = xyz1 @ np.asarray(matrix, dtype=np.float64).T
+    cx = (clip[:, 0] + 1.0) * (resolution / 2.0) - 0.5
+    cy = (1.0 - clip[:, 1]) * (resolution / 2.0) - 0.5
+    z01 = clip[:, 2]
+    h_px = pos_smooth[:, 3] * (resolution / (2.0 * scale))
+
+    out = np.zeros((resolution, resolution, values.shape[1]))
+    for i in range(len(pos_smooth)):
+        if not (0.0 <= z01[i] <= 1.0) or h_px[i] <= 0:
+            continue
+        h = max(h_px[i], H_MIN)
+        r = 2.0 * h
+        x0 = max(int(np.floor(cx[i] - r)), 0)
+        x1 = min(int(np.ceil(cx[i] + r)) + 1, resolution)
+        y0 = max(int(np.floor(cy[i] - r)), 0)
+        y1 = min(int(np.ceil(cy[i] + r)) + 1, resolution)
+        if x0 >= x1 or y0 >= y1:
+            continue
+        xs = np.arange(x0, x1) - cx[i]
+        ys = np.arange(y0, y1) - cy[i]
+        q = np.sqrt(ys[:, None] ** 2 + xs[None, :] ** 2) / h
+        kv = kernels.kernel_value(q)
+        full_xs = np.arange(int(np.floor(cx[i] - r)),
+                            int(np.ceil(cx[i] + r)) + 1) - cx[i]
+        full_ys = np.arange(int(np.floor(cy[i] - r)),
+                            int(np.ceil(cy[i] + r)) + 1) - cy[i]
+        qf = np.sqrt(full_ys[:, None] ** 2 + full_xs[None, :] ** 2) / h
+        denom = kernels.kernel_value(qf).sum()
+        if denom <= 0:
+            continue
+        h_world = h / (resolution / (2.0 * scale))
+        w = kv * (h * h / denom) / h_world ** 2
+        out[y0:y1, x0:x1] += w[:, :, None] * values[i][None, None, :]
+    return out

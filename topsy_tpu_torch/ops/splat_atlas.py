@@ -1,15 +1,29 @@
-"""The presorted splat path: feed, deposit, spill tiers, pyramid collapse.
+"""The splat paths over the atlas: the per-frame-sorted flat path, the
+presorted feed path, the spill tiers, the pyramid collapse.
 
-Counterpart of ``atlas_layout``, ``spill_pass`` (here ``spill_tiers``, which
-returns the two tiers' deposit operands), ``splat_atlas_fields``,
-``slice_column_fields`` and ``collapse_atlas`` in
-``topsy_tpu/ops/splat_atlas.py``.  Every pyramid level
-lives in one padded channel-major atlas (C, atlas_rows, atlas_cols); the
-feed (``splat_feed``) computes anchors, flags and coefficients, the deposit
-(``splat_accum``) accumulates each group into its window, and the spill
-tiers re-run the deposit for particles that did not fit: tier 2 over
-full-width windows in groups of G/8, tier 3 as one-particle groups — the
-reference's ``engine="pallas"`` semantics.
+Counterpart of ``atlas_layout``, ``splat_atlas``, ``spill_pass`` (here
+``spill_tiers``, which returns the two tiers' deposit operands),
+``splat_atlas_fields``, ``slice_column_fields`` and ``collapse_atlas`` in
+``topsy_tpu/ops/splat_atlas.py``.  Every pyramid level lives in one padded
+channel-major atlas (C, atlas_rows, atlas_cols).  ``splat_atlas`` builds
+each group's operands with the plain front end (``splat_coefficients``,
+then a stable per-frame sort on a (row band, tiny, column) key);
+``splat_atlas_fields`` builds them with the feed
+kernel (``splat_feed``).  The deposit (``splat_accum``) accumulates each
+group into its window, and the spill tiers re-run the deposit for particles
+that did not fit: tier 2 over full-width windows in groups of G/8 (at
+least 16), tier 3 as one-particle groups.  Both paths implement the
+reference's ``engine="pallas"`` semantics (column anchors aligned to
+``COL_ALIGN``, a ``PROFILE_COLS`` span from the exact base, size classes,
+``group_flags``), which K2 and its plain version implement.  The
+reference's ``"scan"`` engine is its CPU stand-in; here K2's plain version
+plays that part, so it is not ported, and tier 3 always runs as K2's
+one-particle call (the reference's small launches run it in that engine).
+The reference's ``presorted_buckets`` option of ``splat_atlas`` (the
+presort's flat arrays at 96-row windows, its renderer's path with the feed
+kernel off, which exists there because the feed kernel runs interpreted off
+the TPU) is not ported: the port's feed kernel runs on every device it
+supports (Triton on CUDA, its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -19,6 +33,7 @@ import torch
 
 from .. import config
 from . import splat_accum, splat_feed, splat_giant
+from . import kernels
 from .splat import (H_MAX, PyramidSpec, default_pyramid, exp2_int,
                     levels_from_buckets, splat_coefficients)
 from .splat_accum import (COL_ALIGN, FULL_CLASS, PROFILE_COLS, SUBGROUPS,
@@ -26,6 +41,8 @@ from .splat_accum import (COL_ALIGN, FULL_CLASS, PROFILE_COLS, SUBGROUPS,
 
 GROUP = 512
 TIER3_PALLAS_MIN_GROUPS = 16384
+#: window rows of the per-frame-sorted path
+WINDOW_ROWS = 64
 WINDOW_COLS = 256
 BAND = config.SPLAT_BAND_ROWS
 COL_PAD = config.SPLAT_ATLAS_COL_PAD
@@ -33,7 +50,7 @@ ROW_PAD = config.SPLAT_ATLAS_PAD
 FOOT = 8.0
 #: straggler budget of spill tier 3 per launch
 T3_CAP = 1024
-#: window rows of the presorted path
+#: window rows of the presorted feed path
 PRESORTED_WINDOW_ROWS = 96
 #: spill budgets of an interactive column launch (tier-2 groups, tier-3
 #: stragglers), raised over a frame's: the reference's column launch
@@ -177,6 +194,172 @@ def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
                  window_cols=WINDOW_COLS, **common)
     not_gathered = n_spill - valid.sum()
     return tier2, tier3, not_gathered + torch.clamp(n3 - T3, min=0)
+
+
+def sorted_group_size(n: int) -> int:
+    """The group width of ``splat_atlas`` over n particles: sparse scenes
+    take smaller groups so that a group's (band, column) span still fits
+    its window."""
+    if n >= 1 << 18:
+        return GROUP
+    return 128 if n >= 1 << 14 else 64
+
+
+def splat_atlas(pos_smooth, values, matrix, resolution, scale,
+                extra_mask=None, pyramid: PyramidSpec | None = None,
+                depth_channel=False, giants="auto",
+                _stop_after: str | None = None):
+    """The flat splat path: (n, 4) positions and smoothing and (n, C_in)
+    values to (image (res, res, C), dropped as a 0-dim int tensor), the
+    contract of ``splat.splat_scatter``.
+
+    The particles are sorted per frame on a (row band, tiny, column) key
+    (stable: ties keep the input order) and grouped in G =
+    ``sorted_group_size(n)`` after padding n to a ``G * SUBGROUPS``
+    multiple (the padding decides which particles share a group, hence the
+    anchors, spills and drops); windows have ``WINDOW_ROWS`` rows.
+    extra_mask: optional (n,) bool; matrix: (4, 4) world->clip (host);
+    giants: 'auto' (the largest splats selected here and rendered by the
+    exact dense layer) or 'none'.  ``_stop_after`` truncates the
+    pipeline after 'frontend' (sorted ay, ax, inv_h, coef (n_pad, C)),
+    'anchors' (w0, c0, ce, coef_fit, flags), 'kernel' (the atlas after the
+    main pass) or 'spill' (atlas, dropped) for the tests."""
+    dev = pos_smooth.device
+    if pyramid is None:
+        pyramid = default_pyramid(resolution)
+    matrix = _as_host_matrix(matrix)
+    parts = splat_coefficients(pos_smooth, values, matrix, resolution, scale,
+                               pyramid, extra_mask, mode="lowrank",
+                               depth_channel=depth_channel)
+    C = values.shape[1] + (1 if depth_channel else 0)
+    n = pos_smooth.shape[0]
+    G = sorted_group_size(n)
+    pad_quantum = G * SUBGROUPS
+    n_pad = max(pad_quantum, -(-n // pad_quantum) * pad_quantum)
+    row_offs, atlas_rows, atlas_cols = atlas_layout(pyramid)
+    res_per_level = torch.tensor(pyramid.level_resolutions,
+                                 dtype=torch.float32, device=dev)
+    row_offs_arr = torch.tensor(row_offs, dtype=torch.float32, device=dev)
+
+    giant_args = None
+    coef = parts["coef"]
+    if giants == "auto":
+        gidx, gvalid, excluded = splat_giant.select_giants_topk(
+            parts["giant"], parts["h_px"], splat_giant.CAP)
+        giant_args = (parts["cy_fine"][gidx], parts["cx_fine"][gidx],
+                      parts["h_px"][gidx],
+                      parts["coef_giant"][gidx] * gvalid[:, None])
+        coef = torch.where(excluded[:, None], 0.0, coef)
+    elif giants != "none":
+        raise ValueError(f"unknown giants option {giants!r}")
+
+    lev = parts["level"].long()
+    res_l = res_per_level[lev]
+    # centres clipped into the guard margin: off-image splats deposit only
+    # into the padding, which the collapse crops
+    margin = float(COL_PAD) - FOOT + 4.0
+    cy = torch.minimum(torch.clamp(parts["cy"], min=-margin), res_l + margin)
+    cx = torch.minimum(torch.clamp(parts["cx"], min=-margin), res_l + margin)
+    ay = row_offs_arr[lev] + cy
+    ax = COL_PAD + cx
+    # a negative inv_h flags a tiny (CIC) splat; the profiles see inv_h^2
+    inv_h = torch.where(parts["tiny"], -1.0, 1.0 / parts["h_eff"])
+    sentinel_ay = float(atlas_rows - ROW_PAD + FOOT + 2.0)
+
+    def pad_to(x, fill):
+        return torch.cat([x, torch.full((n_pad - n,) + tuple(x.shape[1:]),
+                                        fill, dtype=x.dtype, device=dev)])
+
+    # (row band, tiny, column): tiny splats lead each band so that all-tiny
+    # groups form; inactive particles take the sentinel key
+    band = torch.floor(ay / BAND).to(torch.int32)
+    xkey = torch.clamp(torch.floor(ax).to(torch.int32), 0, 2047)
+    key = band * 4096 + torch.where(parts["tiny"], 0, 2048).to(
+        torch.int32) + xkey
+    sentinel_key = (int(sentinel_ay // BAND) + 2) * 4096
+    active = torch.abs(coef).sum(dim=1) > 0.0
+    key = torch.where(active, key, sentinel_key)
+    ay = torch.where(active, ay, sentinel_ay)
+    ax = torch.where(active, ax, float(COL_PAD))
+    key = pad_to(key, sentinel_key)
+    _, perm = torch.sort(key, stable=True)
+    ay_s = pad_to(ay, sentinel_ay)[perm]
+    ax_s = pad_to(ax, float(COL_PAD))[perm]
+    inv_h_s = pad_to(inv_h, 1.0)[perm]
+    coef_s = pad_to(coef, 0.0)[perm]
+
+    if _stop_after == "frontend":
+        return ay_s, ax_s, inv_h_s, coef_s
+
+    n_groups = n_pad // G
+    # each particle's true support radius in level pixels: 1 for CIC hats,
+    # KERNEL_SUPPORT * h_eff for polynomials, FOOT for truncated splats
+    sup_s = torch.where(inv_h_s < 0.0, 1.0,
+                        torch.clamp(kernels.KERNEL_SUPPORT / inv_h_s,
+                                    max=FOOT))
+    ay_lo, ay_hi = ay_s - sup_s, ay_s + sup_s
+    ax_lo, ax_hi = ax_s - sup_s, ax_s + sup_s
+    lo_r = ay_lo.reshape(n_groups, G).amin(dim=1)
+    hi_r = ay_hi.reshape(n_groups, G).amax(dim=1)
+    lo_c = ax_lo.reshape(n_groups, G).amin(dim=1)
+    hi_c = ax_hi.reshape(n_groups, G).amax(dim=1)
+    window_rows = WINDOW_ROWS
+    w0 = torch.clamp(torch.floor(lo_r / BAND).to(torch.int32) * BAND, 0,
+                     ((atlas_rows - window_rows) // BAND) * BAND)
+    c0e = torch.floor(lo_c).to(torch.int32)
+    # the window is aligned to COL_ALIGN; profiles span PROFILE_COLS from
+    # the exact base c0e, so the fit is measured from c0e
+    c0 = torch.clamp((c0e // COL_ALIGN) * COL_ALIGN, 0,
+                     atlas_cols - WINDOW_COLS).to(torch.int32)
+    c0e = torch.minimum(torch.maximum(c0e, c0),
+                        c0 + (WINDOW_COLS - PROFILE_COLS)).to(torch.int32)
+    w0 = w0.to(torch.int32)
+
+    w0_rep = w0.repeat_interleave(G).to(torch.float32)
+    c0_rep = c0e.repeat_interleave(G).to(torch.float32)
+    fits = ((ay_hi < w0_rep + window_rows)
+            & (ax_hi < c0_rep + PROFILE_COLS)
+            & (ax_lo >= c0_rep))
+    coef_fit = torch.where(fits[:, None], coef_s, 0.0)
+
+    # size class per group: the smallest (rows, cols) extent bounding every
+    # member's supported footprint (spilled members included)
+    w0f = w0.to(torch.float32)
+    c0ef = c0e.to(torch.float32)
+    sizes = torch.full_like(w0, FULL_CLASS)
+    for sz in range(len(splat_accum.SIZE_CLASSES) - 2, -1, -1):
+        r_e, c_e = splat_accum.SIZE_CLASSES[sz]
+        r_e = window_rows if r_e is None else min(r_e, window_rows)
+        c_e = PROFILE_COLS if c_e is None else c_e
+        fit_sz = (hi_r < w0f + r_e) & (hi_c < c0ef + c_e)
+        sizes = torch.where(fit_sz, sz, sizes)
+    flags = group_flags(inv_h_s.reshape(n_groups, G),
+                        coef_fit.reshape(n_groups, G, C), H_MAX, sizes=sizes)
+    if _stop_after == "anchors":
+        return w0, c0, c0e, coef_fit, flags
+    atlas = splat_accum.accumulate_groups(
+        ay_s.reshape(n_groups, G), ax_s.reshape(n_groups, G),
+        inv_h_s.reshape(n_groups, G),
+        coef_fit.t().reshape(C, n_groups, G).contiguous(), w0, c0, c0e,
+        flags, atlas_rows=atlas_rows, atlas_cols=atlas_cols, C=C, group=G,
+        window_rows=window_rows)
+    if _stop_after == "kernel":
+        return atlas
+
+    spilled = (~fits) & (torch.abs(coef_s).sum(dim=1) > 0.0)
+    per_group_spill = spilled.reshape(n_groups, G).sum(dim=1)
+    tier2, tier3, dropped = spill_tiers(
+        ay_s, ax_s, inv_h_s, coef_s.t(), spilled, per_group_spill,
+        per_group_spill.sum(), C=C, G=G, atlas_rows=atlas_rows,
+        atlas_cols=atlas_cols, window_rows=window_rows)
+    splat_accum.accumulate_groups(**tier2, atlas0=atlas)
+    splat_accum.accumulate_groups(**tier3, atlas0=atlas)
+    if _stop_after == "spill":
+        return atlas, dropped
+    image = collapse_atlas(atlas, pyramid)
+    if giant_args is not None:
+        image = image + splat_giant.giant_image(*giant_args, resolution)
+    return image, dropped
 
 
 def _pergroup_table(group_buckets, px_per_world, pyramid: PyramidSpec,

@@ -20,8 +20,10 @@ class PeriodicSPHRenderer(SPHRenderer):
     num_repetitions = 2
 
     def __init__(self, store, render_progression, resolution: int,
-                 periodicity_scale: float | None = None):
-        super().__init__(store, render_progression, resolution)
+                 periodicity_scale: float | None = None,
+                 backend: str | None = None):
+        super().__init__(store, render_progression, resolution,
+                         backend=backend)
         self._periodicity_scale = periodicity_scale
         self._display_image = None
 

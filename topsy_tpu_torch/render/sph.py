@@ -1,19 +1,27 @@
-"""The SPH renderers: the presorted EXPORT and interactive render loops.
+"""The SPH renderers: the EXPORT and interactive render loops.
 
 Counterpart of ``SPHRenderer``, ``RGBSPHRenderer`` (the three band masses,
 C = 3) and ``DepthSPHRenderer`` (a mass-weighted clip-depth channel, the
-double-click pick's ``get_depth_image``) in ``topsy_tpu/render/sph.py``
-over the store's presort.  ``render(DrawReason.EXPORT)`` plans the exact
-giant layer (``_prepare_giants``), then renders the presorted snapshot
-through ``splat_atlas_fields`` in pieces of at most
-``config.SPLAT_FEED_LAUNCH_CAP`` particles and sums them.  CHANGE and
-REFINE frames switch the progression to ``RenderProgressionColumns`` over
-the main layout and its decimation-mip tiers, and render whole-column
-ranges of the (n_groups, pad_group) matrices of the tier each block names,
-one un-merged column slice per range (``_render_block_columns_fields``),
-with no per-frame sort and no host synchronisation: their device time is
-read later from the frame clock (``notify_presentation_barrier``).  A
-REFINE frame continues the range and keeps the view's giant layer.
+double-click pick's ``get_depth_image``) in ``topsy_tpu/render/sph.py``.
+``render(DrawReason.EXPORT)`` follows the reference's lazy policy
+(``_use_presorted``): a one-shot EXPORT with no cached layout renders the
+snapshot's flat arrays through the per-frame-sorted block path
+(``_render_block`` -> ``splat_atlas``, pieces of ``bucket_size`` rows,
+giants selected inside each piece); once a layout is cached or exports
+repeat, it plans the exact giant layer (``_prepare_giants``) and renders
+the presort through ``splat_atlas_fields`` in pieces of at most
+``config.SPLAT_FEED_LAUNCH_CAP`` particles.  CHANGE and REFINE frames switch the
+progression to ``RenderProgressionColumns`` over the main layout and its
+decimation-mip tiers, and render whole-column ranges of the (n_groups,
+pad_group) matrices of the tier each block names, one un-merged column
+slice per range (``_render_block_columns_fields``), with no per-frame
+sort and no host synchronisation: their device time is read later from the
+frame clock (``notify_presentation_barrier``).  Without the column
+progression (``config.INTERACTIVE_USE_PRESORTED`` off, or
+``backend="scatter"``, which renders every block through
+``splat.splat_scatter``) interactive frames run the block path with a
+device barrier after every block (``sync_blocks``), whose CUDA-event times
+feed the LOD scheduler.  A REFINE frame continues the image.
 ``get_image()`` returns the raw (mass, mass * quantity) framebuffer scaled
 by the photometric mass factor, which makes a partial frame look whole.
 """
@@ -31,9 +39,40 @@ from ..camera import world_to_clip_matrix
 from ..drawreason import DrawReason
 from ..ops import splat, splat_atlas, splat_giant
 from ..util import FrameClock, TimeDeviceOperation
-from .store import ParticleStore
+from .store import ParticleStore, bucket_size
 
 logger = logging.getLogger(__name__)
+
+
+def _block_rows(cell_ids, cell_table, start: int, count: int, bucket: int):
+    """(rows, (bucket,) bool mask) of the ``bucket``-row slice ``rows`` of
+    the flat arrays that holds rows [start, start + count): the slice is
+    clamped into the arrays, the mask keeps the block's rows in selected
+    cells (``cell_table`` over ``cell_ids``)."""
+    sl = min(max(int(start), 0), cell_ids.shape[0] - bucket)
+    rows = slice(sl, sl + bucket)
+    idx = sl + torch.arange(bucket, device=cell_ids.device)
+    return rows, ((idx >= start) & (idx < start + count)
+                  & cell_table[cell_ids[rows].long()])
+
+
+def _render_block(pos_smooth, values, cell_ids, cell_table, matrix, scale,
+                  start: int, count: int, *, resolution: int, bucket: int,
+                  depth_channel: bool, backend: str):
+    """Render rows [start, start + count) of the flat (n_pad, .) arrays,
+    realised as a ``bucket``-row slice plus a mask, into a fresh image
+    through the per-frame-sorted ``splat_atlas`` (``backend="atlas"``) or
+    ``splat_scatter``.  Returns (image, dropped as a 0-dim int tensor)."""
+    rows, mask = _block_rows(cell_ids, cell_table, start, count, bucket)
+    if backend == "atlas":
+        return splat_atlas.splat_atlas(pos_smooth[rows], values[rows],
+                                       matrix, resolution, scale,
+                                       extra_mask=mask,
+                                       depth_channel=depth_channel)
+    im = splat.splat_scatter(pos_smooth[rows], values[rows], matrix,
+                             resolution, scale, extra_mask=mask,
+                             depth_channel=depth_channel)
+    return im, torch.zeros((), dtype=torch.int64, device=im.device)
 
 
 def _render_giant_layer(pos_smooth, values, buckets, cell_ids, cell_table,
@@ -102,10 +141,14 @@ class SPHRenderer:
     _depth_channel = False
 
     def __init__(self, store: ParticleStore, render_progression,
-                 resolution: int):
+                 resolution: int, backend: str | None = None):
         self._store = store
         self._resolution = resolution
+        if backend not in (None, "atlas", "scatter"):
+            raise ValueError(f"unknown splat backend {backend!r}")
+        self._backend = backend or "atlas"
         self._render_progression = render_progression
+        self._export_renders = 0
         self._render_timer = TimeDeviceOperation(
             config.GPU_TIMING_SMOOTH_WINDOW, device=store.device)
         self._frame_clock = FrameClock(store.device)
@@ -187,7 +230,7 @@ class SPHRenderer:
         if r is None:
             r = DepthSPHRenderer(self._store,
                                  copy.copy(self._render_progression),
-                                 self._resolution)
+                                 self._resolution, backend=self._backend)
             self._depth_renderer = r
         r._render_progression = copy.copy(self._render_progression)
         r.rotation_matrix = self.rotation_matrix
@@ -201,10 +244,6 @@ class SPHRenderer:
         if draw_reason == DrawReason.PRESENTATION_CHANGE:
             return
         columns = self._maybe_activate_columns(draw_reason)
-        if draw_reason != DrawReason.EXPORT and not columns:
-            raise NotImplementedError(
-                f"{draw_reason} without the column progression: the sorted "
-                "block path is ROADMAP item M13")
         prog = self._render_progression
         if draw_reason != DrawReason.REFINE:
             prog.select_sphere(-np.asarray(self.position_offset),
@@ -217,38 +256,72 @@ class SPHRenderer:
         self._discard_pending_timing()
         self._frame_clock.start()
         prog.start_frame(draw_reason)
+        # the first block starts the image unless a REFINE frame continues it
+        first_block = draw_reason != DrawReason.REFINE or self._image is None
+        # column frames run barrier-free with deferred timing; frames of the
+        # block path wait for the device after every block, so that the
+        # scheduler's feedback is device time; EXPORT frames never wait
+        defer_timing = columns and draw_reason != DrawReason.EXPORT
+        sync_blocks = draw_reason != DrawReason.EXPORT and not defer_timing
 
         if draw_reason == DrawReason.EXPORT:
-            self._render_presorted(matrix, scale, first_block=True)
-            prog.mark_all_rendered(self._render_timer.total_time_in_frame())
-            self._finish_frame(prog)
-            return
+            use_presorted = self._use_presorted()
+            self._export_renders += 1
+            if use_presorted:
+                self._render_presorted(matrix, scale, first_block=True)
+                prog.mark_all_rendered(
+                    self._render_timer.total_time_in_frame())
+                self._finish_frame(prog)
+                return
 
-        # an interactive frame: one launch per column range, the first
-        # block starting the image unless a REFINE frame continues it; the
-        # view's giant layer is planned once and kept across REFINE frames
-        first_block = draw_reason != DrawReason.REFINE or self._image is None
-        self._prepare_giants(matrix, scale, keep=not first_block)
+        if columns:
+            # the view's giant layer is planned once and kept across REFINE
+            self._prepare_giants(matrix, scale, keep=not first_block)
+        elif draw_reason != DrawReason.REFINE:
+            # the block path selects giants inside each block
+            self._giant_image = None
+            self._giant_bucket = None
         self._dropped_splats = None
         self.last_column_ranges = []
         while (block := prog.get_block(
                 self._render_timer.total_time_in_frame())) is not None:
             for s, l in zip(*block):
-                if l > 0:
+                if l <= 0:
+                    continue
+                if columns:
                     first_block = self._render_columns_range(
                         matrix, scale, s, l, first_block)
+                    continue
+                bucket = bucket_size(l, self._store.n_pad)
+                # a block larger than a bucket renders in bucket pieces
+                for piece in range(0, l, bucket):
+                    with self._render_timer:
+                        im = self._launch_block(matrix, scale, s + piece,
+                                                min(bucket, l - piece),
+                                                bucket)
+                        if first_block:
+                            self._image = im
+                            first_block = False
+                        else:
+                            self._image = self._image + im
+                    if sync_blocks:
+                        self._render_timer.sync(self._image)
             prog.end_block(self._render_timer.total_time_in_frame())
-        self._finish_frame(prog, defer_timing=True)
+        self._finish_frame(prog, record_timing=sync_blocks,
+                           defer_timing=defer_timing)
 
-    def _finish_frame(self, prog, defer_timing: bool = False):
-        """Close a frame.  Both kinds run barrier-free.  An EXPORT frame's
-        enqueue-only timing is discarded rather than fed to the fps running
-        mean.  ``defer_timing`` (interactive frames): the device time is
+    def _finish_frame(self, prog, record_timing: bool = False,
+                      defer_timing: bool = False):
+        """Close a frame.  ``record_timing`` (frames of the block path that
+        waited for the device after every block): the frame's CUDA-event
+        time feeds the fps running mean and the LOD scheduler; otherwise
+        (EXPORT and column frames, barrier-free) the enqueue-only timing is
+        discarded.  ``defer_timing`` (column frames): the device time is
         reported later by whoever observes the frame's one barrier, the
         presentation readback (``notify_presentation_barrier``) or the
         caller's own sync (``notify_frame_time``); the LOD recommendation
         waits for it, the photometric scale factor does not."""
-        self._render_timer.end_frame(record=False)
+        self._render_timer.end_frame(record=record_timing)
         if defer_timing:
             self._pending_timing_prog = prog
             self.last_render_mass_scale = prog.end_frame_get_scalefactor(
@@ -310,7 +383,7 @@ class SPHRenderer:
             return True
         if draw_reason in (DrawReason.REFINE, DrawReason.EXPORT):
             return False
-        if not config.INTERACTIVE_USE_PRESORTED:
+        if self._backend != "atlas" or not config.INTERACTIVE_USE_PRESORTED:
             return False
         store = self._store
         store.ensure_presorted()
@@ -358,10 +431,36 @@ class SPHRenderer:
                 scale, resolution=self._resolution,
                 depth_channel=self._depth_channel)
 
+    def _use_presorted(self) -> bool:
+        """Whether an EXPORT frame renders the presort: once a layout is
+        cached on the store (later renderers reuse it at once) or once
+        exports repeat (movies, repeated saves); a one-shot EXPORT renders
+        the flat arrays through the sorted block path and never builds
+        the presort."""
+        if self._backend != "atlas":
+            return False
+        if self._store.presorted_layout is not None:
+            return True
+        return self._export_renders >= 1
+
     def _render_presorted(self, matrix, scale, first_block: bool):
         self._store.ensure_presorted()
         self._prepare_giants(matrix, scale)
         self._render_presorted_fields(matrix, scale, first_block)
+
+    def _launch_block(self, matrix, scale, start: int, count: int,
+                      bucket: int) -> torch.Tensor:
+        """Rows [start, start + count) of the store's flat arrays into a
+        fresh image (``_render_block``); the block's dropped count becomes
+        the frame's, as in the reference."""
+        store = self._store
+        im, dropped = _render_block(
+            store.flat_pos_smooth, store.flat_values_for(self._buffer_name),
+            store.flat_cell_ids, self._cell_table, matrix, scale, start,
+            count, resolution=self._resolution, bucket=bucket,
+            depth_channel=self._depth_channel, backend=self._backend)
+        self._dropped_splats = dropped
+        return im
 
     def _render_columns_range(self, matrix, scale, col0: int, ncols: int,
                               first_block: bool) -> bool:
@@ -442,9 +541,9 @@ class SPHRenderer:
 
     @property
     def last_dropped_splats(self) -> int:
-        """Splats dropped by the bounded spill tiers: in the last piece of
-        an EXPORT frame (as in the reference), summed over the launches of
-        an interactive frame."""
+        """Splats dropped by the bounded spill tiers: in the last piece or
+        block of an EXPORT or block-path frame (as in the reference), summed
+        over the launches of a column frame."""
         d = self._dropped_splats
         return 0 if d is None else int(d.item())
 

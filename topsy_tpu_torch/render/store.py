@@ -11,7 +11,12 @@ build returns None.  Every presorted array is a device gather through the
 layout (``convert``): the transposed fields, the channel-major values per
 (buffer, values version), the cell ids, the flat copies of the surface
 path and the giant candidate pool.  ``ensure_column_mips`` builds the
-decimation-mip tiers of the interactive LOD over a device layout.
+decimation-mip tiers of the interactive LOD over a device layout.  The
+flat arrays of the per-frame-sorted block path (``flat_pos_smooth``,
+``flat_values_for``, ``flat_cell_ids``: the snapshot's order, zero-padded
+to ``n_pad`` rows, as the reference's store holds them) are device copies
+built on first use, so the presorted paths never pay for them; the block
+path renders pieces of ``bucket_size`` rows of them.
 """
 
 from __future__ import annotations
@@ -27,6 +32,19 @@ from ..ops import morton, morton_device, splat_giant
 
 logger = logging.getLogger(__name__)
 
+PAD_MULTIPLE = 512
+MIN_BUCKET = 4096
+MAX_BUCKET = 1 << 22
+
+
+def bucket_size(n: int, n_max: int) -> int:
+    """Smallest power-of-two bucket >= n, in [MIN_BUCKET, min(n_max,
+    MAX_BUCKET)]: the length of a block path's piece."""
+    b = MIN_BUCKET
+    while b < n and b < MAX_BUCKET:
+        b *= 2
+    return min(b, n_max, MAX_BUCKET)
+
 
 class ParticleStore:
     """Owns the device particle state for one loader."""
@@ -35,6 +53,8 @@ class ParticleStore:
         self._loader = data_loader
         self.device = torch.device(device)
         self.n = len(data_loader)
+        self.n_pad = max(MIN_BUCKET, -(-self.n // PAD_MULTIPLE)
+                         * PAD_MULTIPLE)
         self._quantity_name: str | None = None
         self._quantity = None
         self.values_version = 0
@@ -66,6 +86,7 @@ class ParticleStore:
         self._giant_meta = None
         self._giant_candidates = {}
         self._giant_values = {}
+        self._flat = {}
 
     def _adopt(self, t: torch.Tensor) -> torch.Tensor:
         dev = self.device
@@ -126,6 +147,51 @@ class ParticleStore:
         else:
             q = self._quantity
         return torch.stack([m, q], dim=1)
+
+    # -- flat arrays of the block path --------------------------------------------
+
+    def _pad_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` zero-padded to ``n_pad`` rows on the device."""
+        pad = self.n_pad - t.shape[0]
+        if pad == 0:
+            return t.contiguous()
+        return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+
+    @property
+    def flat_pos_smooth(self) -> torch.Tensor:
+        """(n_pad, 4) positions and smoothing, zero rows past n."""
+        got = self._flat.get("pos")
+        if got is None:
+            got = self._flat["pos"] = self._pad_rows(self.pos_smooth)
+        return got
+
+    def flat_values_for(self, buffer_name: str) -> torch.Tensor:
+        """(n_pad, C) channel values of ``values_for``, zero rows past n,
+        built once per (buffer, values version)."""
+        key = (buffer_name, self.values_version)
+        got = self._flat.get(key)
+        if got is None:
+            for k in [k for k in self._flat if isinstance(k, tuple)
+                      and k[1] != self.values_version]:
+                del self._flat[k]
+            got = self._flat[key] = self._pad_rows(
+                self.values_for(buffer_name))
+        return got
+
+    @property
+    def surface_values(self) -> torch.Tensor:
+        """(n_pad, 2) (mass, raw quantity) of the surface mode."""
+        return self.flat_values_for("surface_values")
+
+    @property
+    def flat_cell_ids(self) -> torch.Tensor:
+        """(n_pad,) int32 cell id per row (zeros without cells)."""
+        got = self._flat.get("cells")
+        if got is None:
+            ids = (torch.zeros(self.n, dtype=torch.int32, device=self.device)
+                   if self.cell_ids is None else self.cell_ids)
+            got = self._flat["cells"] = self._pad_rows(ids)
+        return got
 
     # -- presorted state --------------------------------------------------------
 

@@ -14,8 +14,13 @@ surface) render the progression's ranges barrier-free with deferred timing
 (the frame clock, as ``render/sph.py``); a REFINE frame continues the image
 and keeps the view's giant plan, and the giant layer is composited again
 after every frame (max is idempotent).  The photometric mass scale is
-unity.  A layout without column slicing (the reference's scatter fallback)
-is ROADMAP item M13.
+unity.  Without the column progression (``config.INTERACTIVE_USE_PRESORTED``
+off, a layout without column slicing, or ``backend="scatter"``) every frame
+renders the snapshot's flat arrays in ``bucket_size`` pieces through
+``zsplat.zsplat_scatter`` (``_render_block_surface``, the reference's
+scatter fallback, which keeps the truncated giants), combined by
+max-compositing, with a device barrier after every piece of an
+interactive frame (``sync_blocks``).
 """
 
 from __future__ import annotations
@@ -25,8 +30,20 @@ import torch
 
 from ..drawreason import DrawReason
 from ..ops import splat, splat_atlas, splat_giant, zsplat, zsplat_atlas
-from .sph import SPHRenderer
-from .store import ParticleStore
+from .sph import SPHRenderer, _block_rows
+from .store import ParticleStore, bucket_size
+
+
+def _render_block_surface(pos_smooth, values, cell_ids, cell_table, matrix,
+                          scale, density_cut, start: int, count: int, *,
+                          resolution: int, bucket: int):
+    """Rows [start, start + count) of the flat (n_pad, .) arrays, realised
+    as a ``bucket``-row slice plus a mask, through ``zsplat_scatter``:
+    a (res, res, 2) (value, depth) image."""
+    rows, mask = _block_rows(cell_ids, cell_table, start, count, bucket)
+    return zsplat.zsplat_scatter(pos_smooth[rows], values[rows], matrix,
+                                 resolution, scale, density_cut=density_cut,
+                                 extra_mask=mask)
 
 
 def surface_column_launches(pos_smooth, values, buckets, cell_ids,
@@ -134,8 +151,9 @@ class SurfaceSPHRenderer(SPHRenderer):
     _rho_percentiles_num_samples = 101
 
     def __init__(self, store: ParticleStore, render_progression,
-                 resolution: int):
-        super().__init__(store, render_progression, resolution)
+                 resolution: int, backend: str | None = None):
+        super().__init__(store, render_progression, resolution,
+                         backend=backend)
         loader = store._loader
         self._percentile_to_den_cut = zsplat.density_cut_percentiles(
             loader.get_mass(), loader.get_smooth(),
@@ -165,13 +183,11 @@ class SurfaceSPHRenderer(SPHRenderer):
     def render(self, draw_reason=DrawReason.CHANGE):
         if draw_reason == DrawReason.PRESENTATION_CHANGE:
             return
-        # the reference activates the columns progression for EXPORT too
-        if not self._maybe_activate_columns(
-                DrawReason.CHANGE if draw_reason == DrawReason.EXPORT
-                else draw_reason):
-            raise NotImplementedError(
-                f"{draw_reason} without the column progression: the "
-                "surface scatter fallback is ROADMAP item M13")
+        # the columns progression serves EXPORT too: the scatter fallback is
+        # far slower than the column path, so a one-shot EXPORT builds it
+        columns = self._maybe_activate_columns(
+            DrawReason.CHANGE if draw_reason == DrawReason.EXPORT
+            else draw_reason)
         prog = self._render_progression
         if draw_reason != DrawReason.REFINE:
             prog.select_sphere(-np.asarray(self.position_offset),
@@ -184,26 +200,55 @@ class SurfaceSPHRenderer(SPHRenderer):
         self._discard_pending_timing()
         self._frame_clock.start()
         first_block = draw_reason != DrawReason.REFINE or self._image is None
-        self._prepare_surface_giants(matrix, scale, cut,
-                                     keep=not first_block)
+        if columns:
+            self._prepare_surface_giants(matrix, scale, cut,
+                                         keep=not first_block)
+        else:
+            # the scatter fallback keeps the truncated hemispheres
+            self._giant_bucket = None
+            self._surface_giant_layer = None
         prog.start_frame(draw_reason)
+        defer_timing = columns and draw_reason != DrawReason.EXPORT
+        sync_blocks = draw_reason != DrawReason.EXPORT and not defer_timing
         self._dropped_splats = None
         self.last_column_ranges = []
+        store = self._store
         while (block := prog.get_block(
                 self._render_timer.total_time_in_frame())) is not None:
             starts, lens = block
             for s, l in zip(starts, lens):
-                if l > 0:
+                if l <= 0:
+                    continue
+                if columns:
                     first_block = self._render_columns_surface(
                         matrix, scale, cut, s, l, first_block)
+                    continue
+                bucket = bucket_size(l, store.n_pad)
+                for piece in range(0, l, bucket):
+                    with self._render_timer:
+                        im = _render_block_surface(
+                            store.flat_pos_smooth,
+                            store.flat_values_for(self._buffer_name),
+                            store.flat_cell_ids, self._cell_table, matrix,
+                            scale, cut, s + piece, min(bucket, l - piece),
+                            resolution=self._resolution, bucket=bucket)
+                        if first_block:
+                            self._image = im
+                            first_block = False
+                        else:
+                            self._image = _max_composite(self._image, im)
+                    if sync_blocks:
+                        self._render_timer.sync(self._image)
             prog.end_block(self._render_timer.total_time_in_frame())
         layer = self._surface_giant_layer
         if layer is not None:
+            # max is idempotent: compositing the layer again after every
+            # REFINE continuation keeps the giants exact
             with self._render_timer:
                 self._image = (layer if self._image is None
                                else _max_composite(self._image, layer))
-        self._finish_frame(prog,
-                           defer_timing=draw_reason != DrawReason.EXPORT)
+        self._finish_frame(prog, record_timing=sync_blocks,
+                           defer_timing=defer_timing)
         self.last_render_mass_scale = 1.0  # max semantics need no rescale
 
     def _prepare_surface_giants(self, matrix, scale, cut, keep: bool = False):

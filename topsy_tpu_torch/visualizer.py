@@ -11,6 +11,8 @@ draw that leaves the progression incomplete requests a REFINE draw),
 capability check and its revert on failure, ``canvas_format`` (float16
 presentation for ``rgb-hdr``) and the ``render_mode`` / ``scale`` /
 ``rotation_matrix`` / ``position_offset`` / ``quantity_name`` properties.
+``splat_backend``
+(``"atlas"``, the default, or ``"scatter"``) is handed to every renderer.
 The device is explicit: ``device="cuda"`` (the default) needs a GPU and
 raises without one; tests pass ``"cpu"``.  The canvas and overlays are the
 port's copies of the reference's classes; the colorbar (which needs
@@ -63,12 +65,14 @@ class VisualizerBase:
                  colormap_name=config.DEFAULT_COLORMAP,
                  canvas_class=None,
                  render_mode="univariate",
+                 splat_backend=None,
                  device="cuda"):
         if render_mode is None:
             render_mode = "univariate"
         self._validate_render_mode(render_mode)
         self._render_mode = render_mode
         self._periodic_tiling = periodic_tiling
+        self._splat_backend = splat_backend
         self.device = resolve_device(device)
         self._render_resolution = render_resolution
         self._colorbar = None
@@ -141,11 +145,12 @@ class VisualizerBase:
         if self._periodic_tiling:
             self._sph = periodic.PeriodicSPHRenderer(
                 self.store, progression, self._render_resolution,
-                self.periodicity_scale)
+                self.periodicity_scale, backend=self._splat_backend)
         else:
             renderer_class = self._renderer_class_for_mode(self._render_mode)
             self._sph = renderer_class(self.store, progression,
-                                       self._render_resolution)
+                                       self._render_resolution,
+                                       backend=self._splat_backend)
         self.reset_view(rotation_matrix=old_rotation,
                         position_offset=old_position, scale=old_scale)
         self.invalidate()
