@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (topsy_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mesh-only]
 
 Builds the port's hand-written kernels from this checkout (the Triton feed
 kernel K1, the CUDA deposit kernel K2 and the CUDA z-buffer kernel K3, into
@@ -47,8 +47,10 @@ columns) and checks its (value, depth) image against the port's
 scatter-max ground truth; and drives the interactive surface (phase SI:
 K3 on main-layout slices, its REFINE launch and the mip tier's CHANGE
 launch, five views timed by the frame clock, the completed image against
-EXPORT, and a zoomed-out view with the surface giant layer against the
-scatter truth).  Phases L1-L5 drive the block paths: a fresh renderer's
+EXPORT, and a view zoomed out only as far as the surface giant layer
+runs, against the scatter truth, with the layer alone against its own
+float64 evaluation over every particle the windowed deposit excluded).
+Phases L1-L5 drive the block paths: a fresh renderer's
 one-shot EXPORT through the sorted path (K2 at G = 512 with 64-row windows
 and tier 2 at G = 64, every call held against its plain version, the
 image against the scatter truth and the presorted EXPORT, its time beside
@@ -65,8 +67,26 @@ positions, each of its passes apart, holds its peak allocation under its
 memory bound, holds it at 2^20 against the native host kNN and a KD-tree,
 and
 times an ``ArrayDataLoader`` Visualizer over 2^22 positions without
-smoothing lengths to its first image, against its scatter truth.  It
-prints:
+smoothing lengths to its first image, against its scatter truth.  Phase
+G drives the particle mesh (``parallel/``, ``render/distributed.py``) at
+the scene's full size: one shard per card, or two shards on one card
+(then it says that the branch with one shard per card, peer copies and
+NCCL did not run).  A mesh Visualizer (``Visualizer(mesh=...)``) over the
+scene's loader: its lazy first EXPORT through the strided sorted path
+(shard 0's K2 calls held), its slabs and mip tiers, presorted EXPORT
+frames (shard 0's K1 and K2 calls held, the combine and each shard's
+launch timed alone, one frame traced by torch.profiler into
+build/mesh_export_<D>.trace.json with each card's kernel span and busy
+time printed) against the single device's EXPORT and the scatter
+truth; interactive views to completion against the mesh's EXPORT; RGB
+and the depth pick against the single device; the surface at the default
+cut and zoomed out (shard 0's K3 calls held bit-identical, the giant
+layer alone against its float64 evaluation) against the single device;
+periodic tiling; and two processes over 2^22 rows split unequally through
+``parallel/multiprocess.py`` (NCCL where each has a card, gloo where they
+share one; the negotiated slab length, both exit codes, a timeout) against
+one process's mesh.  ``--mesh-only`` runs the scene and phase G alone, on
+every card of the machine.  It prints:
 
 * the card's name and power limit (nvidia-smi);
 * ptxas' registers, stack and spills for every K2 and K3 kernel
@@ -109,6 +129,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -748,6 +769,46 @@ def against_export(vis, tag):
     check(abs(rel - counted) <= 1e-4, f"{tag}: density sum rel diff {rel} "
           f"is not the dropped splats' {counted} within 1e-4")
     return im_e
+
+
+def trace_frame(fn, path: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA), its
+    Chrome trace written to ``path``.  Returns, in ms from the call's start
+    on the host, its host span and per card the first kernel's start, the
+    last kernel's end and the kernels' busy time (device activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cards = range(torch.cuda.device_count())
+    for c in cards:
+        torch.cuda.synchronize(c)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("traced_frame"):
+            fn()
+        for c in cards:
+            torch.cuda.synchronize(c)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    events = prof.events()
+    host = [e for e in events if e.name == "traced_frame"
+            and e.device_type == torch.autograd.DeviceType.CPU][0]
+    t0 = host.time_range.start
+    spans = {}
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name == "traced_frame"):
+            continue
+        a, b = e.time_range.start - t0, e.time_range.end - t0
+        lo, hi, busy = spans.get(e.device_index, (a, b, 0.0))
+        spans[e.device_index] = (min(lo, a), max(hi, b), busy + b - a)
+    out = {"host_ms": (host.time_range.end - t0) / 1e3,
+           "cards": {str(c): {"first_ms": lo / 1e3, "last_ms": hi / 1e3,
+                              "busy_ms": busy / 1e3}
+                     for c, (lo, hi, busy) in sorted(spans.items())}}
+    log(f"trace of one frame ({path}): "
+        + (json.dumps(out) if spans else
+           "the profiler shows no device time"))
+    return out
 
 
 def cuda_ms(fn):
@@ -2135,6 +2196,677 @@ def phase_arrays(dev, loader, exps=(18, 20, 22, 24), check_exp=20,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase G: the particle mesh
+# ---------------------------------------------------------------------------
+
+@contextmanager
+def logged_warnings(*names):
+    """The WARNING records of the loggers ``names`` while the block runs."""
+    import logging
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Keep(logging.WARNING)
+    loggers = [logging.getLogger(n) for n in names]
+    for lg in loggers:
+        lg.addHandler(handler)
+    try:
+        yield records
+    finally:
+        for lg in loggers:
+            lg.removeHandler(handler)
+
+
+def card_mesh():
+    """One shard per card on a machine with two or more cards, else two
+    shards on cuda:0; and whether the cards are distinct."""
+    import torch
+    from topsy_tpu_torch.parallel import make_mesh
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return make_mesh(n), True
+    return make_mesh(2, devices=["cuda:0"] * 2), False
+
+
+@contextmanager
+def recording_shards(n_local):
+    """Records the kernel calls each shard makes inside its device guard
+    (``render_step.device_guard``, entered once per local shard and path
+    in shard order): {"K1": [(shard, args, kwargs)], "K2": [(shard, K2
+    kwargs without the starting atlas)], "K3": [(shard, starting keys,
+    kwargs)]}."""
+    from topsy_tpu_torch.ops import splat_accum, splat_feed, zsplat_atlas
+    from topsy_tpu_torch.parallel import render_step
+    calls = {"K1": [], "K2": [], "K3": []}
+    state = {"enters": 0, "shard": None}
+    originals = (render_step.device_guard, splat_feed.splat_feed,
+                 splat_accum.accumulate_groups,
+                 zsplat_atlas.accumulate_max_packed)
+    guard, feed, accum, zaccum = originals
+
+    @contextmanager
+    def shard_guard(device):
+        state["shard"] = state["enters"] % n_local
+        state["enters"] += 1
+        try:
+            with guard(device):
+                yield
+        finally:
+            state["shard"] = None
+
+    def rec_feed(*args, **kw):
+        calls["K1"].append((state["shard"], args, kw))
+        return feed(*args, **kw)
+
+    def rec_accum(*args, **kw):
+        call = dict(zip(K2_ARGS, args), **kw)
+        call.pop("atlas0", None)
+        calls["K2"].append((state["shard"], call))
+        return accum(*args, **kw)
+
+    def rec_zaccum(keys, *args, **kw):
+        calls["K3"].append((state["shard"], keys.clone(), kw))
+        return zaccum(keys, *args, **kw)
+
+    render_step.device_guard = shard_guard
+    splat_feed.splat_feed = rec_feed
+    splat_accum.accumulate_groups = rec_accum
+    zsplat_atlas.accumulate_max_packed = rec_zaccum
+    try:
+        yield calls
+    finally:
+        (render_step.device_guard, splat_feed.splat_feed,
+         splat_accum.accumulate_groups,
+         zsplat_atlas.accumulate_max_packed) = originals
+
+
+def hold_k1_calls(tag, calls):
+    """Every recorded K1 call against its plain version; the first timed
+    beside its plain version and bound.  Returns (largest difference,
+    (ms, plain ms, bound ms))."""
+    from topsy_tpu_torch.ops import splat_feed
+    err, t = 0.0, None
+    for i, (args, kw) in enumerate(calls):
+        out_k = splat_feed.splat_feed_triton(*args, **kw)
+        err = max(err, compare_feed(f"{tag} call {i}", out_k,
+                                    splat_feed.splat_feed_plain(*args, **kw)))
+        msg = (f"phase {tag} K1 call {i}: groups {kw['piece_groups']} of "
+               f"{args[0][0].shape[1]} (C_in {kw['C_in']}, depth "
+               f"{int(kw['depth_channel'])}), bit-exact on integers")
+        if i == 0:
+            t = (timed_ms(lambda: splat_feed.splat_feed_triton(*args, **kw),
+                          5),
+                 timed_ms(lambda: splat_feed.splat_feed_plain(*args, **kw),
+                          2),
+                 k1_bound(kw, args[0][0].shape[1])[0])
+            msg += f"; {t[0]:.3f} ms (plain {t[1]:.3f} ms, bound {t[2]:.4f} ms)"
+        log(msg)
+    return err, t
+
+
+def hold_k3_calls(tag, calls):
+    """Every recorded K3 call bit-identical to its plain version from the
+    call's own starting keys; the first timed.  Returns (number held,
+    (ms, plain ms))."""
+    import torch
+    from topsy_tpu_torch.ops import zsplat_accum
+    t = None
+    for i, (keys0, kw) in enumerate(calls):
+        k = keys0.clone()
+        zsplat_accum.accumulate_max_packed_cuda(k, **kw)
+        p = keys0.clone()
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        zsplat_accum.accumulate_max_packed_plain(p, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - tp) * 1e3
+        n_diff = int((k != p).sum().item())
+        check(n_diff == 0, f"{tag} K3 call {i}: {n_diff} keys differ from "
+              "the plain version")
+        msg = (f"phase {tag} K3 call {i}: groups {kw['flags'].shape[0]} of "
+               f"{kw['group']}, bit-identical")
+        if i == 0:
+            k_t = keys0.clone()
+            t = (timed_from_ms(
+                lambda: zsplat_accum.accumulate_max_packed_cuda(k_t, **kw),
+                lambda: k_t.copy_(keys0), 5), plain_ms)
+            msg += f"; {t[0]:.3f} ms (plain {plain_ms:.3f} ms, host wall)"
+        log(msg)
+    return len(calls), t
+
+
+def visible_count(store, sph):
+    """Particles of the store inside the renderer's view."""
+    import numpy as np
+    from topsy_tpu_torch.ops import splat
+    *_, visible = splat.project(store.pos_smooth,
+                                sph._matrix().astype(np.float32),
+                                RESOLUTION, np.float32(sph.scale))
+    return int(visible.sum().item())
+
+
+def mesh_against_export(vis, tag):
+    """The completed interactive image of the mesh renderer's view against
+    its EXPORT image of the view, at phase I's bounds: the mass scale
+    within 1e-6 of 1, correlation > 0.9999, the density sums within 1e-4
+    once each side's dropped splats are counted (as shares of the
+    visible splats: every particle has the same mass)."""
+    import numpy as np
+    from topsy_tpu_torch.visualizer import DrawReason
+    sph = vis._sph
+    ms = sph.last_render_mass_scale
+    d_i = sph.last_dropped_splats
+    im_i = sph.get_output_image()[..., 0].double().cpu().numpy()
+    sph.invalidate()
+    sph.render(DrawReason.EXPORT)
+    d_e = sph.last_dropped_splats
+    im_e = sph.get_output_image()[..., 0].double().cpu().numpy()
+    visible = visible_count(vis.store, sph)
+    rel = im_i.sum() / im_e.sum() - 1.0
+    counted = (d_e - d_i) / max(visible - d_e, 1)
+    corr = float(np.corrcoef(im_i.ravel(), im_e.ravel())[0, 1])
+    log(f"phase {tag}: completed view against the mesh EXPORT: mass scale "
+        f"{ms!r}, density sum rel diff {rel:.6e} (dropped: interactive "
+        f"{d_i}, EXPORT {d_e}, of {visible} visible), corr {corr:.7f}")
+    check(abs(ms - 1.0) <= 1e-6, f"{tag}: mass scale {ms}")
+    check(corr > 0.9999, f"{tag}: correlation {corr} <= 0.9999")
+    check(abs(rel - counted) <= 1e-4, f"{tag}: density sum rel diff {rel}")
+
+
+def surfaces_agree(tag, a, b):
+    """Two (value, depth) surface images: coverage flips <= 1e-4 of the
+    covered pixels, depths within rtol 1e-5 / atol 1e-4 and values equal
+    (rtol 1e-5, atol 1e-6) on >= 99.9% of the pixels both cover."""
+    import numpy as np
+    cov_a, cov_b = a[..., 1] > 0, b[..., 1] > 0
+    flips = int((cov_a != cov_b).sum())
+    both = cov_a & cov_b
+    d_ok = np.isclose(a[..., 1][both], b[..., 1][both], rtol=1e-5, atol=1e-4)
+    v_ok = np.isclose(a[..., 0][both], b[..., 0][both], rtol=1e-5, atol=1e-6)
+    log(f"phase {tag}: covered {int(cov_b.sum())} px, coverage flips "
+        f"{flips}, depths within rtol 1e-5 on {d_ok.mean():.6f}, values "
+        f"equal on {v_ok.mean():.6f} of both-covered pixels")
+    check(cov_b.sum() > 0, f"{tag}: nothing covered")
+    check(flips <= 1e-4 * cov_b.sum(), f"{tag}: coverage flips {flips}")
+    check(d_ok.mean() >= 0.999, f"{tag}: depths agree on {d_ok.mean()}")
+    check(v_ok.mean() >= 0.999, f"{tag}: values agree on {v_ok.mean()}")
+
+
+def giant_layer_truth(tag, ssph, store):
+    """The surface giant layer of the renderer's last frame alone against
+    an independent float64 evaluation: every particle the windowed deposit
+    excluded (visible, above the density cut, in a bucket at or above the
+    giant plan's threshold and wider than ``GIANT_H`` level pixels), each a
+    full-support hemisphere ``z01 + sqrt(4 - q^2) h_clip / 2`` on its
+    true pixel smoothing, the front-most kept.  Coverage flips <= 1e-4,
+    depths within rtol 1e-5 / atol 1e-4, values equal on >= 99.9%.
+    Returns (giants, pixels the layer covers, pixels it wins in the
+    frame)."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch.ops import morton_device, splat
+    from topsy_tpu_torch.ops.splat_giant import GIANT_H
+    layer = ssph._surface_giant_layer
+    check(layer is not None, f"{tag}: the frame drew no giant layer")
+    matrix = ssph._matrix().astype(np.float32)
+    scale = np.float32(ssph.scale)
+    ps = store.pos_smooth
+    vals = store.values_for(ssph._buffer_name)
+    cx, cy, z01, h_px, visible = splat.project(ps, matrix, RESOLUTION, scale)
+    nl = splat.default_pyramid(RESOLUTION).num_levels
+    buckets = morton_device.smoothing_buckets(ps[:, 3])
+    lev = splat.levels_from_buckets(buckets, RESOLUTION / (2.0 * scale), nl)
+    h_l = h_px * splat.exp2_int(-lev)
+    h = ps[:, 3].double()
+    # the density in float32, as the deposit and the layer compute it (the
+    # lowest cut is the snapshot's least density, so the sparsest particle
+    # passes or fails it by float32 rounding)
+    hw = torch.clamp(ps[:, 3], min=1e-30)
+    rho = vals[:, 0] / (hw * hw * hw)
+    cut = ssph._density_cut_value()
+    giant = (visible & (rho > cut) & (h_l > GIANT_H)
+             & (buckets >= int(ssph._giant_bucket)))
+    idx = torch.nonzero(giant).flatten()
+    grid = torch.arange(RESOLUTION, dtype=torch.float64, device=ps.device)
+    depth = torch.full((RESOLUTION, RESOLUTION), -torch.inf,
+                       dtype=torch.float64, device=ps.device)
+    value = torch.zeros_like(depth)
+    hch = h / float(scale) * 0.5
+    for s in range(0, idx.numel(), 64):
+        i = idx[s:s + 64]
+        inv = 1.0 / h_px[i].double()
+        q2 = (((grid[None, :] - cy[i, None].double()) * inv[:, None]) ** 2
+              )[:, :, None] + (((grid[None, :] - cx[i, None].double())
+                                * inv[:, None]) ** 2)[:, None, :]
+        d = torch.where(q2 < 4.0, z01[i, None, None].double()
+                        + torch.sqrt(torch.clamp(4.0 - q2, min=0.0))
+                        * hch[i, None, None], -torch.inf)
+        best, win = d.max(dim=0)
+        take = best > depth
+        value = torch.where(take, vals[:, 1].double()[i][win], value)
+        depth = torch.where(take, best, depth)
+    depth = torch.clamp(depth, min=0.0)
+    value = torch.where(depth > 0, value, 0.0)
+    truth = torch.stack([value, depth], dim=-1).cpu().numpy()
+    got = layer.double().cpu().numpy()
+    surfaces_agree(f"{tag} giant layer alone against its float64 evaluation",
+                   got, truth)
+    frame = ssph.get_output_image()[..., 1].cpu().numpy()
+    covers = int((got[..., 1] > 0).sum())
+    wins = int(((got[..., 1] == frame) & (frame > 0)).sum())
+    log(f"phase {tag}: {idx.numel()} giants; the layer covers {covers} px "
+        f"and is front-most on {wins} px of the frame's "
+        f"{int((frame > 0).sum())} covered")
+    return idx.numel(), covers, wins
+
+
+def zoom_out_scale(store, start, stop, step=5.0):
+    """The smallest scale in [start, stop) whose giant plan takes
+    candidates: the view closest to the scene's in which the surface
+    giant layer runs (so the windowed deposit keeps part of the image)."""
+    import numpy as np
+    from topsy_tpu_torch.ops import splat
+    from topsy_tpu_torch.ops.splat_giant import giant_plan
+    nl = splat.default_pyramid(RESOLUTION).num_levels
+    for zs in np.arange(start, stop, step):
+        size, _ = giant_plan(store.giant_meta(), RESOLUTION, float(zs), nl)
+        if size > 0:
+            return float(zs), size
+    fail(f"no scale in [{start}, {stop}) plans a giant layer")
+
+
+def set_view(sph_or_vis, view):
+    rotation, offset, scale = view
+    sph_or_vis.rotation_matrix = rotation
+    sph_or_vis.position_offset = offset
+    sph_or_vis.scale = scale
+
+
+def phase_mesh(vis, export_image, truth_density, view):
+    """Phase G, the particle mesh at the scene's full size: one shard per
+    card, or two shards on one card.  G1 the mesh Visualizer's lazy first
+    EXPORT (the strided sorted path, shard 0's K2 calls held) and its
+    presorted EXPORT frames (the slabs and their mip tiers; shard 0's K1
+    and K2 calls held; the combine and each shard's launch timed alone;
+    one frame traced)
+    against the single device's EXPORT and the scatter truth; G2
+    interactive views to completion against the mesh's EXPORT; G3 RGB and
+    the depth pick; G4 the surface (shard 0's K3 calls held bit-identical)
+    at the default cut and zoomed out with its giant layer checked alone;
+    G5 periodic tiling; G6 two processes over unequal rows through
+    ``parallel/multiprocess.py``.  Returns (launches per path, K1 error,
+    K2 error, the kernels-line entries of K2's mesh paths, summary); fails
+    if the mesh took either of the reference's logged degradations."""
+    with logged_warnings("topsy_tpu_torch.parallel.render_step",
+                         "topsy_tpu_torch.render.distributed") as degraded:
+        out = _phase_mesh(vis, export_image, truth_density, view)
+    # the reference's two logged degradations: a splatter without rows to
+    # presort (the block path instead), a surface without the column path
+    # (one device instead)
+    check(not degraded, f"the mesh phase degraded: {degraded}")
+    return out
+
+
+def _phase_mesh(vis, export_image, truth_density, view):
+    import numpy as np
+    import torch
+    from topsy_tpu_torch import config
+    from topsy_tpu_torch.ops import morton, splat_atlas
+    from topsy_tpu_torch.parallel import (DistributedSplatter, make_mesh,
+                                          multiprocess, render_step)
+    from topsy_tpu_torch.render import distributed
+    from topsy_tpu_torch.render.periodic import PeriodicSPHRenderer
+    from topsy_tpu_torch.visualizer import (DrawReason, OffscreenCanvas,
+                                            Visualizer)
+    t_all = time.perf_counter()
+    mesh, distinct = card_mesh()
+    D = mesh.n_devices
+    log(f"phase G: mesh of {D} shards on {[str(d) for d in mesh.devices]}"
+        + ("" if distinct else "; this machine has one card, so the branch "
+           "with one shard per card (peer copies between cards, each "
+           "shard's launches under a second card's device guard, NCCL "
+           "between processes) did not run"))
+    loader, store = vis.data_loader, vis.store
+    launches, summary = {}, {"shards": [str(d) for d in mesh.devices],
+                             "one_shard_per_card": distinct}
+    feed_err = accum_err = 0.0
+
+    # ---- G1: the mesh Visualizer; its lazy first EXPORT, then presorted
+    t0 = time.perf_counter()
+    mvis = Visualizer(data_loader_class=lambda: loader,
+                      render_resolution=RESOLUTION,
+                      canvas_class=OffscreenCanvas,
+                      device=mesh.first_device, mesh=mesh)
+    mvis.show_status = mvis.show_colorbar = mvis.show_scalebar = False
+    msph = mvis._sph
+    check(isinstance(msph, distributed.DistributedSPHRenderer),
+          "the mesh Visualizer's renderer is not the mesh's")
+    check(not msph._splatter.has_presorted()
+          and mvis.store.presorted_layout is None,
+          "the mesh Visualizer's first EXPORT built a presort")
+    mvis.quantity_name = "test-quantity"
+    set_view(mvis, view)
+    log(f"phase G1: mesh Visualizer built (its first EXPORT the strided "
+        f"sorted path) in {time.perf_counter() - t0:.2f} s")
+    lazy = distributed.DistributedSPHRenderer(
+        mvis.store, loader.get_render_progression(), RESOLUTION, mesh)
+    set_view(lazy, view)
+    reset_counts()
+    with recording_shards(len(mesh.devices)) as rec:
+        lazy_ms, lazy_wall, _ = cuda_ms(
+            lambda: lazy.render(DrawReason.EXPORT))
+    launches["mesh_sorted_export"] = read_counts(
+        "mesh sorted EXPORT", ("accumulate_groups",))
+    check(not lazy._splatter.has_presorted(), "the lazy EXPORT built slabs")
+    lazy_img = lazy.get_image()
+    log(f"phase G1 lazy first EXPORT (the strided sorted path over {D} "
+        f"shards, pieces of MAX_BUCKET rows per shard): {lazy_ms:.3f} ms "
+        f"(CUDA events; {lazy_wall:.3f} ms wall); launches "
+        f"{launches['mesh_sorted_export']}")
+    images_agree("G1 lazy EXPORT against the single device's EXPORT",
+                 lazy_img, export_image, 1e-3, 0.9999)
+    images_agree("G1 lazy EXPORT against splat_scatter", lazy_img,
+                 truth_density[..., None], 1e-2, 0.999)
+    sorted_entry, sorted_shapes = hold_k2_calls(
+        "G1 sorted shard 0", [c for s, c in rec["K2"] if s == 0],
+        launches["mesh_sorted_export"]["accumulate_groups"])
+    accum_err = max(accum_err, sorted_entry["max_abs_err"])
+    summary.update(lazy_export_ms=lazy_ms, sorted_shapes=sorted_shapes)
+    del lazy, lazy_img, rec
+
+    # the slabs of the Visualizer's splatter were built by the quantity
+    # switch's autorange (its second EXPORT); a fresh splatter times them
+    fresh = DistributedSplatter(mesh, store.pos_smooth,
+                                store.values_for(msph._buffer_name),
+                                RESOLUTION)
+    slab_ms, slab_wall, _ = cuda_ms(fresh.ensure_presorted)
+    del fresh
+    splatter = msph._get_splatter()
+    check(splatter.has_presorted(), "the mesh's second EXPORT built no slabs")
+    layout = splatter.presorted_layout
+    G = layout.pad_group
+    w = morton.min_slice_width(layout)
+    floor = int(layout.real_per_column[:min(w, G)].sum())
+    target = config.COLUMN_MIP_FLOOR_TARGET * D
+    mips = splatter.presorted_mip_layouts()
+    log(f"phase G1 slabs: presort, {len(mips)} mip tier(s) and slabs in "
+        f"{slab_ms:.3f} ms (CUDA events; {slab_wall:.3f} ms wall); n_out {layout.n_out}, {layout.n_out // D} "
+        f"slots ({layout.n_out // D // G} groups) per shard; main layout's "
+        f"first {w} columns hold {floor} particles against the mip floor "
+        f"{target} (COLUMN_MIP_FLOOR_TARGET x {D}): "
+        + (f"tiers of {[int(m.real_per_column.sum()) for m in mips]} real "
+           "particles formed" if mips else "no tier formed"))
+    for k, (dev, slab) in enumerate(zip(mesh.devices,
+                                        splatter._presorted["slabs"])):
+        log(f"phase G1 shard {k} on {dev}: {slab.fields[0].shape[0]} groups "
+            f"of {G}, {int((slab.values_cm[0] > 0).sum().item())} particles")
+    summary.update(slabs_ms=slab_ms, tiers=[int(m.real_per_column.sum())
+                                          for m in mips],
+                   mip_floor=[floor, target])
+    reset_counts()
+    frame_ms, wall_ms = export_frame_ms(msph)
+    launches["mesh_export"] = read_counts(
+        "mesh EXPORT", ("splat_feed", "accumulate_groups"))
+    med = statistics.median(frame_ms)
+    img = msph.get_image()
+    log(f"phase G1 mesh EXPORT: {FRAMES} frames, median {med:.3f} ms/frame "
+        f"(CUDA events; host wall median {statistics.median(wall_ms):.3f} "
+        f"ms), {N_PARTICLES / (med / 1e3):.6e} splats/s, dropped "
+        f"{msph.last_dropped_splats}, frames ms "
+        f"{[round(t, 3) for t in frame_ms]}; launches "
+        f"{launches['mesh_export']}")
+    images_agree("G1 mesh EXPORT against the single device's EXPORT", img,
+                 export_image, 1e-3, 0.9999)
+    images_agree("G1 mesh EXPORT against splat_scatter", img,
+                 truth_density[..., None], 1e-2, 0.999)
+    with recording_shards(len(mesh.devices)) as rec:
+        msph.invalidate()
+        msph.render(DrawReason.EXPORT)
+    k1 = [(a, k) for s, a, k in rec["K1"] if s == 0]
+    k2 = [c for s, c in rec["K2"] if s == 0]
+    check(k1 and k2, "shard 0 made no K1 or K2 call in the EXPORT frame")
+    err, k1_t = hold_k1_calls("G1 presorted shard 0", k1)
+    feed_err = max(feed_err, err)
+    export_entry, _ = hold_k2_calls("G1 presorted shard 0", k2,
+                                    launches["mesh_export"]
+                                    ["accumulate_groups"])
+    accum_err = max(accum_err, export_entry["max_abs_err"])
+    matrix = msph._matrix().astype(np.float32)
+    scale = np.float32(msph.scale)
+    # every shard's launch alone, on its own device (the slabs are
+    # contiguous runs of the (bucket, Morton) order, so their costs differ)
+    shard_ms = []
+    for dev, slab in zip(mesh.devices, splatter._presorted["slabs"]):
+        with render_step.device_guard(dev):
+            shard_ms.append(timed_ms(
+                lambda slab=slab: splat_atlas.splat_atlas_fields(
+                    slab.fields, slab.values_cm, matrix, RESOLUTION, scale,
+                    slab.group_buckets, giants=msph._giant_bucket), 5))
+    part = msph.get_output_image()
+    partials = [(part.clone(), torch.zeros((), dtype=torch.int64,
+                                           device=part.device))
+                for _ in mesh.devices]
+    combine_ms = timed_ms(lambda: render_step.combine(partials, mesh), 20)
+    log(f"phase G1: each shard's presorted launch alone (splat_atlas_fields "
+        f"over its slab's groups) {[round(t, 3) for t in shard_ms]} ms; the "
+        f"combine of {D} partial framebuffers alone {combine_ms:.4f} ms "
+        f"(CUDA events)")
+    summary.update(export_ms=frame_ms, shard_launch_ms=shard_ms,
+                   combine_ms=combine_ms, k1_shard0=k1_t,
+                   k2_shard0_ms=export_entry["ms"])
+    summary["export_trace"] = trace_frame(
+        lambda: (msph.invalidate(), msph.render(DrawReason.EXPORT)),
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     f"mesh_export_{D}.trace.json"))
+    del rec, partials, part
+
+    # ---- G2: interactive views over the mesh
+    t0 = time.perf_counter()
+    set_view(mvis, view)
+    counts, change_ms, n_frames, tiers_seen = {}, [], [], []
+    for v in range(2 + FRAMES):
+        mvis.rotate(0.0, 0.05)
+        reset_counts()
+        frames = drive_view(mvis)
+        for k, c in read_counts("mesh interactive", ("splat_feed",
+                                                    "accumulate_groups")
+                                ).items():
+            counts[k] = counts.get(k, 0) + (c if v >= 2 else 0)
+        log(f"phase G2 view {v}{' (warm-up)' if v < 2 else ''}: frames "
+            f"{FRAME_FIELDS} {show_frames(frames)}")
+        if v >= 2:
+            change_ms.append(frames[0][0])
+            n_frames.append(len(frames))
+            tiers_seen.append([f[4] for f in frames])
+            mesh_against_export(mvis, f"G2 view {v}")
+    launches["mesh_interactive"] = counts
+    log(f"phase G2: {FRAMES} views, first frame median "
+        f"{statistics.median(change_ms):.3f} ms by the frame clock (frames "
+        f"{[round(t, 3) for t in change_ms]}); frames to completion "
+        f"{n_frames}; tiers {tiers_seen}; launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    summary.update(change_ms=change_ms, frames=n_frames, view_tiers=tiers_seen)
+
+    # ---- G3: RGB and the depth pick against the single device
+    vis.render_mode = "rgb"
+    set_view(vis, view)
+    vis._sph.render(DrawReason.EXPORT)
+    rgb1 = vis._sph.get_image()
+    mvis.render_mode = "rgb"
+    set_view(mvis, view)
+    check(isinstance(mvis._sph, distributed.DistributedRGBSPHRenderer),
+          "not the mesh's RGB renderer")
+    mvis._sph.render(DrawReason.EXPORT)        # builds its slabs
+    reset_counts()
+    rgb_ms, _, _ = cuda_ms(lambda: mvis._sph.render(DrawReason.EXPORT))
+    launches["mesh_rgb_export"] = read_counts(
+        "mesh RGB EXPORT", ("splat_feed", "accumulate_groups"))
+    rgb8 = mvis._sph.get_image()
+    for c in range(3):
+        images_agree(f"G3 mesh RGB band {c} against the single device",
+                     rgb8[..., c:c + 1], rgb1[..., c:c + 1], 1e-3, 0.9999)
+    mvis.render_mode = "univariate"
+    vis.render_mode = "univariate"
+    for v in (vis, mvis):
+        v.quantity_name = "test-quantity"
+        set_view(v, view)
+        # the mesh depth renderer's first EXPORT is the lazy block path,
+        # its second the presorted slabs (the single device's store has
+        # its presort already)
+        v.get_depth_image(DrawReason.EXPORT)
+        v.get_depth_image(DrawReason.EXPORT)
+    dr1 = vis._sph._depth_renderer.get_image()
+    dr8 = mvis._sph._depth_renderer.get_image()
+    for c in (0, 2):
+        images_agree(f"G3 mesh depth renderer channel {c} (EXPORT) against "
+                     "the single device", dr8[..., c:c + 1], dr1[..., c:c + 1],
+                     1e-3, 0.9999)
+    mvis.get_depth_image()     # Triton specializes K1 to the tier's shape
+    reset_counts()
+    pick_ms, _, pick = cuda_ms(lambda: mvis.get_depth_image())
+    launches["mesh_pick"] = read_counts("mesh pick", ("splat_feed",
+                                                      "accumulate_groups"))
+    c = RESOLUTION // 2
+    check(np.isfinite(pick[c - 8:c + 8, c - 8:c + 8]).all(),
+          "the mesh pick has no depth at the centre")
+    log(f"phase G3: mesh RGB EXPORT {rgb_ms:.3f} ms; the pick (a CHANGE "
+        f"frame of the mesh's depth renderer, tier "
+        f"{mvis._sph._depth_renderer.render_progression.last_block_tier}) "
+        f"{pick_ms:.3f} ms; launches RGB {launches['mesh_rgb_export']}, "
+        f"pick {launches['mesh_pick']}")
+    summary.update(rgb_ms=rgb_ms, pick_ms=pick_ms)
+    del rgb1, rgb8, dr1, dr8
+
+    # ---- G4: the surface at the default cut, then zoomed out
+    vis.render_mode = "surface"
+    mvis.render_mode = "surface"
+    ssph1, ssph8 = vis._sph, mvis._sph
+    check(isinstance(ssph8, distributed.DistributedSurfaceSPHRenderer),
+          "not the mesh's surface renderer")
+    k3_held, k3_t = 0, None
+    for tag, zoom in (("cut50", None), ("cut0 zoomed out", True)):
+        pct = 50.0 if zoom is None else 0.0
+        if zoom:
+            zs, size = zoom_out_scale(store, view[2] + 5.0, 800.0)
+            sview = (view[0], view[1], zs)
+        else:
+            sview = view
+        for s in (ssph1, ssph8):
+            set_view(s, sview)
+            s.set_density_cut_percentile(pct)
+            s.invalidate()
+            s.render(DrawReason.EXPORT)
+        reset_counts()
+        with recording_shards(len(mesh.devices)) as rec:
+            ssph8.render(DrawReason.EXPORT)
+        launches[f"mesh_surface_export_{tag.split()[0]}"] = read_counts(
+            f"mesh surface EXPORT {tag}", ("accumulate_max_groups",
+                                           "zdeposit_plan"))
+        n, t = hold_k3_calls(f"G4 {tag} shard 0",
+                             [(k, kw) for s, k, kw in rec["K3"] if s == 0])
+        check(n > 0, f"G4 {tag}: shard 0 made no K3 call")
+        k3_held += n
+        k3_t = k3_t or t
+        del rec
+        # unrecorded frames, both renderers (the recording clones keys)
+        s_ms = statistics.median(export_frame_ms(ssph8)[0])
+        s1_ms = statistics.median(export_frame_ms(ssph1)[0])
+        s1 = ssph1.get_image()
+        s8 = ssph8.get_image()
+        log(f"phase G4 {tag}: scale {sview[2]}, mesh surface EXPORT median "
+            f"{s_ms:.3f} ms against one device's {s1_ms:.3f} ms (CUDA "
+            f"events, {FRAMES} frames each), dropped "
+            f"{ssph8.last_dropped_splats}; launches per frame "
+            f"{launches[f'mesh_surface_export_{tag.split()[0]}']}")
+        surfaces_agree(f"G4 {tag} mesh surface against the single device",
+                       s8, s1)
+        if zoom:
+            g, covers, wins = giant_layer_truth(f"G4 {tag} mesh", ssph8,
+                                                store)
+            summary.update(surface_zoom_scale=zs, surface_giants=g,
+                           surface_giant_px=[covers, wins])
+        summary[f"surface_{tag.split()[0]}_ms"] = [s_ms, s1_ms]
+    summary.update(k3_calls_held=k3_held, k3_shard0=k3_t)
+
+    # ---- G5: periodic tiling over the mesh
+    p1 = PeriodicSPHRenderer(store, loader.get_render_progression(),
+                             RESOLUTION, PERIODICITY)
+    p8 = distributed.DistributedPeriodicSPHRenderer(
+        mvis.store, loader.get_render_progression(), RESOLUTION, mesh,
+        PERIODICITY)
+    for p in (p1, p8):
+        set_view(p, view)
+        p.render(DrawReason.EXPORT)
+    p8.render(DrawReason.EXPORT)   # the lazy block path first, then slabs
+    reset_counts()
+    per_ms, _, _ = cuda_ms(lambda: p8.render(DrawReason.EXPORT))
+    launches["mesh_periodic_export"] = read_counts(
+        "mesh periodic EXPORT", ("splat_feed", "accumulate_groups"))
+    p1.render(DrawReason.EXPORT)
+    images_agree("G5 mesh periodic EXPORT against the single device",
+                 p8.get_output_image().cpu().numpy(),
+                 p1.get_output_image().cpu().numpy(), 1e-3, 0.9999)
+    log(f"phase G5: mesh periodic EXPORT {per_ms:.3f} ms; launches "
+        f"{launches['mesh_periodic_export']}")
+    summary["periodic_ms"] = per_ms
+    del p1, p8, mvis, msph, splatter, ssph8
+    torch.cuda.empty_cache()
+
+    # ---- G6: two processes over unequal rows
+    t0 = time.perf_counter()
+    n_mp, share = 1 << 22, 0.25
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "mesh_mp.npz")
+    got = multiprocess.launch(n_mp, 2, out, device="cuda", share=share,
+                              resolution=RESOLUTION, scale=float(view[2]),
+                              timeout=300)
+    mp_s = time.perf_counter() - t0
+    workers = [json.loads(line) for so in got["stdout"]
+               for line in so.splitlines() if line.startswith("{")]
+    natural, negotiated = got["natural"], got["negotiated"]
+    log(f"phase G6: 2 processes, backend {got['backend']}, over {n_mp} rows "
+        f"split {share} / {1 - share}: natural slab lengths "
+        f"{natural.tolist()}, negotiated {negotiated.tolist()}; both exited "
+        f"0 in {mp_s:.1f} s wall; workers {workers}")
+    check(natural[0] != natural[1], "the unequal split gave equal slabs")
+    check((negotiated == natural.max()).all(), "the negotiated length is "
+          "not the largest natural one")
+    ps_mp, vals_mp = multiprocess.scene(n_mp)
+    _, (g_ps, g_vals), _ = multiprocess.split_rows(ps_mp, vals_mp, 2, share)
+    one = DistributedSplatter(make_mesh(2, devices=["cuda:0"] * 2), g_ps,
+                              g_vals, RESOLUTION)
+    from topsy_tpu_torch import camera
+    mp_matrix = camera.world_to_clip_matrix(np.eye(3), np.zeros(3),
+                                            float(view[2]))
+    images_agree("G6 block path against one process",
+                 got["block"], one.render(mp_matrix, view[2]).cpu().numpy(),
+                 1e-3, 0.9999)
+    want, _ = one.render_presorted(mp_matrix, view[2])
+    want = want.cpu().numpy()
+    images_agree("G6 presorted EXPORT against one process", got["pre"],
+                 want, 1e-3, 0.9999)
+    images_agree("G6 full-width column launch against one process",
+                 got["col"], want, 1e-3, 0.9999)
+    launches["mesh_process_local"] = next(
+        (wk["launches"] for wk in workers if wk.get("rank") == 0
+         and "launches" in wk), {})
+    check(launches["mesh_process_local"].get("accumulate_groups", 0) > 0,
+          "the workers launched no K2")
+    summary.update(process_local_s=mp_s, natural=natural.tolist(),
+                   negotiated=negotiated.tolist(),
+                   backend=str(got["backend"]))
+    del one, got
+    g_s = time.perf_counter() - t_all
+    log(f"phase G: {g_s:.1f} s")
+    summary["seconds"] = g_s
+    entries = {"mesh_sorted": sorted_entry, "mesh_export": export_entry}
+    return launches, feed_err, accum_err, entries, summary
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2164,6 +2896,9 @@ def main() -> int:
 
     # ---- phase 2: build the kernels from this checkout ---------------------
     t0 = time.perf_counter()
+    for name in ("splat_accum", "zsplat_accum"):
+        # built from this checkout's sources, never an earlier build's
+        (cuda_build.BUILD_DIR / f"lib{name}.so").unlink(missing_ok=True)
     cuda_build.build(["splat_accum", "zsplat_accum"])     # nvcc in parallel
     # compile K1 on a two-group input
     tiny = torch.zeros((2, 512), device=dev)
@@ -2307,9 +3042,18 @@ def main() -> int:
     check(pres[..., :3].std() > 0, "presentation image is constant")
 
     export_image = raw
+    truth_density = truth
     view = (np.array(sph.rotation_matrix), np.array(sph.position_offset),
             sph.scale)
-    del truth, ps, vals
+    del ps, vals
+    if "--mesh-only" in sys.argv[1:]:
+        # phase G alone, over every card of the machine
+        glaunches, _, _, _, gsummary = phase_mesh(vis, export_image,
+                                                  truth_density, view)
+        print(json.dumps({"mesh": gsummary, "launches": glaunches}),
+              flush=True)
+        log(f"card: {card}")
+        return 0
 
     # ---- phase D: the device loader, bench.py's path ------------------------
     dlaunches, dsummary = phase_device_loader(dev, sph)
@@ -2328,7 +3072,6 @@ def main() -> int:
     # ---- phases L1-L4: the block paths over the scene's loader and store ---
     lentries, llaunches, lsummary = phase_sorted(vis, export_image, view)
     accum_err = max(accum_err, *(e["max_abs_err"] for e in lentries.values()))
-    del export_image
 
     # ---- phase S1: the surface mode on the same Visualizer -----------------
     t0 = time.perf_counter()
@@ -2577,7 +3320,6 @@ def main() -> int:
           "of the image, not at least half")
 
     # ---- phase SI: the interactive surface at both cuts --------------------
-    from topsy_tpu_torch.ops.splat_giant import giant_plan
     from topsy_tpu_torch.render.surface import surface_column_launches
     si_launches, si_summary = {}, {}
     srotation, sscale0 = np.array(ssph.rotation_matrix), ssph.scale
@@ -2663,15 +3405,13 @@ def main() -> int:
                                tiers=tiers_seen, dropped=drops, flips=flips,
                                bit_identical=bool(torch.equal(im_i, im_e)))
         log(f"phase SI {tag}: {time.perf_counter() - t0:.1f} s")
-    # SI4: zoomed out until the surface giant plan takes candidates, at the
-    # lowest cut (giants are diffuse), against the scatter truth
+    # SI4: zoomed out only as far as the surface giant plan takes
+    # candidates, at the lowest cut (giants are diffuse): the frame against
+    # the scatter truth (which composites the same layer), and the layer
+    # alone against its own float64 evaluation over every particle the
+    # windowed deposit excluded
     vis.rotation_matrix = srotation
-    for zs in (250.0, 300.0, 400.0, 800.0):
-        size, _ = giant_plan(store.giant_meta(), RESOLUTION, zs,
-                             pyr.num_levels)
-        if size > 0:
-            break
-    check(size > 0, "no scale up to 800 plans a surface giant layer")
+    zs, size = zoom_out_scale(store, sscale0 + 5.0, 800.0)
     vis.scale = zs
     frames = drive_view(vis)
     check(ssph._surface_giant_layer is not None, "the interactive surface "
@@ -2681,7 +3421,10 @@ def main() -> int:
     surface_truth("SI4 cut0 zoomed out", ssph.get_image(),
                   np.float32(ssph._density_cut_value()),
                   int(ssph._giant_bucket))
-    si_summary["giant_scale"] = zs
+    n_giants, covers, wins = giant_layer_truth("SI4 cut0 zoomed out", ssph,
+                                               store)
+    si_summary.update(giant_scale=zs, giants=n_giants,
+                      giant_layer_px=[covers, wins])
     vis.scale = sscale0
 
     # ---- phase L5: the surface scatter fallback -----------------------------
@@ -2690,9 +3433,17 @@ def main() -> int:
     # ---- phase A: the array entry point and its smoothing lengths ----------
     asummary = phase_arrays(dev, vis.data_loader)
 
+    # ---- phase G: the particle mesh ----------------------------------------
+    glaunches, g_feed_err, g_accum_err, gentries, gsummary = phase_mesh(
+        vis, export_image, truth_density, view)
+    feed_err = max(feed_err, g_feed_err)
+    accum_err = max(accum_err, g_accum_err)
+    del export_image, truth_density
+
     # ---- phase 8: kernels --------------------------------------------------
     # launches per path, each counted from 0 just before its path ran
-    paths = {"export": launches, "device_loader_export": dlaunches,
+    paths = {**glaunches, "export": launches,
+             "device_loader_export": dlaunches,
              "interactive": ilaunches, **mlaunches, **llaunches,
              **{f"surface_export_{k}": v for k, v in slaunches.items()},
              **{f"surface_interactive_{k}": v
@@ -2748,7 +3499,7 @@ def main() -> int:
     ]
     # K2 on the block paths, one entry per path: its launches in the path's
     # run, its calls held and the first call of each shape timed
-    for path, entry in lentries.items():
+    for path, entry in {**lentries, **gentries}.items():
         kernels.append({"name": f"accumulate_groups[{path}]",
                         "route": "cuda",
                         "source": "topsy_tpu_torch/csrc/splat_accum.cu",
@@ -2760,7 +3511,7 @@ def main() -> int:
         f"{json.dumps(dsummary)}; interactive {json.dumps(interactive)}; "
         f"modes {json.dumps(msummary)}; interactive surface "
         f"{json.dumps(si_summary)}; block paths {json.dumps(lsummary)}; "
-        f"arrays {json.dumps(asummary)}")
+        f"arrays {json.dumps(asummary)}; mesh {json.dumps(gsummary)}")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

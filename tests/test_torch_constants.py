@@ -30,6 +30,10 @@ from topsy_tpu_torch.ops import zsplat as p_zsplat
 from topsy_tpu_torch.ops import zsplat_accum as p_zaccum
 from topsy_tpu_torch.ops import zsplat_atlas as p_zatlas
 from topsy_tpu.ops import stats as r_stats
+from topsy_tpu.parallel import mesh as r_mesh
+from topsy_tpu.parallel import render_step as r_render_step
+from topsy_tpu_torch.parallel import mesh as p_mesh
+from topsy_tpu_torch.parallel import render_step as p_render_step
 
 PINNED = [
     (p_splat, r_splat, ["H_MIN", "H_MAX", "H_TRUNC", "WINDOW"]),
@@ -54,6 +58,7 @@ PINNED = [
     (p_zsplat, r_zsplat, ["HEMI_SUPPORT"]),
     (p_zatlas, r_zatlas, ["GROUP"]),
     (p_morton_device, r_morton_device, ["R_CAP"]),
+    (p_mesh, r_mesh, ["PARTICLE_AXIS"]),
 ]
 
 # (module, attribute path) pairs whose reference modules import matplotlib,
@@ -157,3 +162,13 @@ def test_knn_device_max_n_is_the_ports_own():
     assert p_knn_device.device_bytes(1 << 25) \
         - p_knn_device.device_bytes(1 << 24) \
         == p_knn_device.BYTES_PER_PARTICLE << 24
+
+
+def test_mesh_pad_quantum_matches_reference_literal():
+    """The mesh presort pads its layout to 4096 slots per shard, a literal
+    inside the reference's ``ensure_presorted`` and ``_build_mesh_mips``."""
+    import inspect
+    src = inspect.getsource(r_render_step.DistributedSplatter)
+    assert "pad_total=4096 * self.n_devices" in src
+    assert "pad_total=4096 * nl_dev" in src
+    assert p_render_step.PAD_QUANTUM == 4096

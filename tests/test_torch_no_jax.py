@@ -1,7 +1,9 @@
 """The PyTorch port imports and renders every mode (univariate EXPORT
 through the sorted block path and the presort, CHANGE and REFINE frames,
 surface EXPORT and CHANGE frames, rgb, rgb-hdr, bivariate, the depth pick
-and periodic tiling), presorts on the device and
+and periodic tiling), renders over a two-shard CPU mesh (the block path,
+a CHANGE frame of the mesh's columns, the surface), presorts on the device
+and
 renders a device loader's snapshot from a decimation-mip tier, computes
 smoothing lengths (the device kNN on the CPU, an ArrayDataLoader's native
 kNN) and renders them through the scatter backend, with jax and topsy_tpu
@@ -88,6 +90,18 @@ tiled = topsy_tpu_torch.test(2000, render_resolution=64, device="cpu",
                              periodic_tiling=True)
 im = tiled.get_sph_image()
 assert im.shape == (64, 64) and np.isfinite(im).all() and im.sum() > 0
+from topsy_tpu_torch.parallel import make_mesh
+mvis = topsy_tpu_torch.test(2000, render_resolution=64, device="cpu",
+                            canvas_class=OffscreenCanvas,
+                            mesh=make_mesh(2, devices=["cpu"] * 2))
+mvis.show_status = mvis.show_colorbar = mvis.show_scalebar = False
+im = mvis.get_sph_image()
+assert im.shape == (64, 64) and np.isfinite(im).all() and im.sum() > 0
+assert mvis.store.presorted_layout is None    # the strided block path
+mvis.draw(DrawReason.CHANGE)
+assert mvis._sph.last_column_ranges and mvis._sph._splatter.has_presorted()
+mvis.render_mode = "surface"
+assert (mvis._sph.get_image()[..., 1] > 0).any()
 for banned in ("jax", "topsy_tpu"):
     loaded = [m for m in sys.modules
               if m == banned or m.startswith(banned + ".")]

@@ -10,6 +10,8 @@ giant layer -> lattice composite -> colormap) and the surface (z-buffered)
 mode (the same presort -> plain front end -> front-most-fragment kernel K3,
 ``csrc/zsplat_accum.cu`` -> spill tiers -> max-composite collapse -> giant
 layer -> bilateral filter and lighting).
+Every mode also renders over a particle mesh of several cards, shards or
+processes (``mesh=``, ``parallel/``, ``render/distributed.py``).
 The package imports ``torch`` and never ``jax`` nor anything of
 ``topsy_tpu``: it keeps pinned copies of the jax-free modules it needs
 (config, camera, drawreason, canvas, overlays, units, cells, progression,

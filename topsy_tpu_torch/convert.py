@@ -1,5 +1,6 @@
 """Presorted state as device gathers, and the reference's layouts carried
-over to the port's tensors.
+over to the port's tensors (a single device's, and a mesh splatter's
+with ``splatter_layout_from_reference``).
 
 Every presorted array of the port is one row gather through a
 ``morton_device.DevicePresortedLayout`` (``gidx``, the source row of every
@@ -46,6 +47,29 @@ def device_layout_from_reference(layout, device) -> DevicePresortedLayout:
     ``buckets`` device arrays, ``real_per_column`` numpy) as the port's, on
     ``device``."""
     return _gather_layout(np.asarray(layout.gidx), layout, device)
+
+
+def layout_from_reference(layout, device) -> DevicePresortedLayout:
+    """A reference layout of either kind, its device build's (``gidx``) or
+    its host presort's (``order``, ``dst``), as the port's on ``device``."""
+    if hasattr(layout, "gidx"):
+        return device_layout_from_reference(layout, device)
+    return device_layout_from_host(layout, device)
+
+
+def splatter_layout_from_reference(splatter, ref_splatter):
+    """Give a port ``parallel.DistributedSplatter`` the presorted layout
+    and decimation-mip layouts of the reference's splatter over the same
+    snapshot (built there on first use), so that both packages cut one
+    layout into their slabs (the device presort's shuffle draws from
+    torch's generator, not ``jax.random``)."""
+    ref_splatter.ensure_presorted()
+    ps = ref_splatter._presorted
+    dev = splatter.mesh.first_device
+    splatter.adopt_presorted(
+        layout_from_reference(ps["layout"], dev),
+        [layout_from_reference(m["layout"], dev)
+         for m in ps.get("mips", [])])
 
 
 def presorted_positions(layout: DevicePresortedLayout,

@@ -2,7 +2,8 @@
 
 Each ``.cu`` source is compiled by ``nvcc`` into its own shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  Libraries land in ``build/torch_kernels/`` at the
+build takes seconds); a library newer than its source is loaded as it
+is.  Libraries land in ``build/torch_kernels/`` at the
 repository root, next to Triton's cache for the port's Triton kernels.
 """
 
@@ -57,8 +58,15 @@ def build(names) -> None:
     for entry in names:
         n, d = (entry, ()) if isinstance(entry, str) else \
             (entry[0], tuple(entry[1]))
-        if _stem(n, d) not in _libs:
-            jobs[_stem(n, d)] = (n, d)
+        s = _stem(n, d)
+        if s in _libs:
+            continue
+        if _current(s, n):
+            # built by an earlier process of this checkout (the workers of
+            # a multi-process render load the parent's build)
+            _libs[s] = ctypes.CDLL(str(BUILD_DIR / f"lib{s}.so"))
+            continue
+        jobs[s] = (n, d)
     if not jobs:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,6 +84,17 @@ def build(names) -> None:
         raise RuntimeError("\n".join(failed))
     for s in jobs:
         _libs[s] = ctypes.CDLL(str(BUILD_DIR / f"lib{s}.so"))
+
+
+def _current(stem: str, name: str) -> bool:
+    """Whether ``lib<stem>.so`` exists and is newer than its source and
+    than this file (which holds the flags)."""
+    lib = BUILD_DIR / f"lib{stem}.so"
+    if not lib.exists():
+        return False
+    newest = max((CSRC / f"{name}.cu").stat().st_mtime,
+                 Path(__file__).stat().st_mtime)
+    return lib.stat().st_mtime > newest
 
 
 def library(name: str, defines=()) -> ctypes.CDLL:

@@ -60,8 +60,12 @@ def default_pyramid(resolution: int) -> PyramidSpec:
 
 
 def _scalar(v, device):
-    """A float32 0-dim tensor from a python/numpy scalar or a tensor."""
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+    """A float32 0-dim tensor from a python/numpy scalar or a tensor.  A
+    scalar is filled on the device: an upload from pageable host memory
+    would wait for the device's queue."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
 def project(pos_smooth: torch.Tensor, matrix, resolution: int, scale):

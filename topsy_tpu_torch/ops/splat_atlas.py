@@ -28,6 +28,8 @@ supports (Triton on CUDA, its plain version on the CPU).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -237,9 +239,8 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
     pad_quantum = G * SUBGROUPS
     n_pad = max(pad_quantum, -(-n // pad_quantum) * pad_quantum)
     row_offs, atlas_rows, atlas_cols = atlas_layout(pyramid)
-    res_per_level = torch.tensor(pyramid.level_resolutions,
-                                 dtype=torch.float32, device=dev)
-    row_offs_arr = torch.tensor(row_offs, dtype=torch.float32, device=dev)
+    row_offs_arr, res_per_level = _level_tables(
+        row_offs, tuple(pyramid.level_resolutions), dev)
 
     giant_args = None
     coef = parts["coef"]
@@ -362,6 +363,18 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
     return image, dropped
 
 
+@functools.lru_cache(maxsize=None)
+def _level_tables(row_offs: tuple, level_resolutions: tuple,
+                  device: torch.device):
+    """(row offsets, resolutions) of the pyramid's levels as float32
+    tensors on ``device``, uploaded once: an upload from pageable host
+    memory waits for the device's queue, which would hold the host in every
+    launch."""
+    return (torch.tensor(row_offs, dtype=torch.float32, device=device),
+            torch.tensor(level_resolutions, dtype=torch.float32,
+                         device=device))
+
+
 def _pergroup_table(group_buckets, px_per_world, pyramid: PyramidSpec,
                     row_offs):
     """(n_groups, 8) f32: [bucket, 2^-lev, 2^lev, row_off, res_l, 0, 0, 0]."""
@@ -370,11 +383,11 @@ def _pergroup_table(group_buckets, px_per_world, pyramid: PyramidSpec,
     lev = levels_from_buckets(group_buckets, px_per_world, pyramid.num_levels)
     lev_l = lev.long()
     zeros = torch.zeros((n_groups,), dtype=torch.float32, device=dev)
+    row_offs_arr, res_per_level = _level_tables(
+        tuple(row_offs), tuple(pyramid.level_resolutions), dev)
     return torch.stack(
         [group_buckets.to(torch.float32), exp2_int(-lev), exp2_int(lev),
-         torch.as_tensor(row_offs, dtype=torch.float32, device=dev)[lev_l],
-         torch.as_tensor(pyramid.level_resolutions, dtype=torch.float32,
-                         device=dev)[lev_l],
+         row_offs_arr[lev_l], res_per_level[lev_l],
          zeros, zeros, zeros], dim=1), lev
 
 

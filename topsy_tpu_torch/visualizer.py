@@ -18,6 +18,9 @@ raises without one; tests pass ``"cpu"``.  The canvas and overlays are the
 port's copies of the reference's classes; the colorbar (which needs
 matplotlib) is built on first use.  ``OffscreenCanvas`` and ``DrawReason``
 are re-exported here for callers of the port.
+``mesh`` (``parallel.make_mesh``) renders every mode over a particle
+mesh through the renderers of ``render/distributed.py``; the mesh's first
+shard must be ``device``, which holds the store.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ class VisualizerBase:
                  canvas_class=None,
                  render_mode="univariate",
                  splat_backend=None,
+                 mesh=None,
                  device="cuda"):
         if render_mode is None:
             render_mode = "univariate"
@@ -74,6 +78,13 @@ class VisualizerBase:
         self._periodic_tiling = periodic_tiling
         self._splat_backend = splat_backend
         self.device = resolve_device(device)
+        self._mesh = mesh
+        if mesh is not None:
+            from .render.distributed import same_device
+            if not same_device(mesh.first_device, self.device):
+                raise ValueError(f"the mesh's first shard is on "
+                                 f"{mesh.first_device}, device={device}: "
+                                 "they must agree")
         self._render_resolution = render_resolution
         self._colorbar = None
         self._colorbar_wanted = False
@@ -103,8 +114,14 @@ class VisualizerBase:
                                    color=(1, 1, 1, 1))
         self._scalebar = ScalebarOverlay(self)
 
-    @staticmethod
-    def _renderer_class_for_mode(render_mode):
+    def _renderer_class_for_mode(self, render_mode):
+        if self._mesh is not None:
+            from .render import distributed
+            if render_mode in ("rgb", "rgb-hdr"):
+                return distributed.DistributedRGBSPHRenderer
+            if render_mode == "surface":
+                return distributed.DistributedSurfaceSPHRenderer
+            return distributed.DistributedSPHRenderer
         if render_mode in ("rgb", "rgb-hdr"):
             return sph.RGBSPHRenderer
         if render_mode == "surface":
@@ -142,14 +159,21 @@ class VisualizerBase:
         else:
             old_rotation = old_position = old_scale = None
         progression = self.data_loader.get_render_progression()
+        mesh_args = () if self._mesh is None else (self._mesh,)
         if self._periodic_tiling:
-            self._sph = periodic.PeriodicSPHRenderer(
+            if self._mesh is None:
+                periodic_class = periodic.PeriodicSPHRenderer
+            else:
+                from .render.distributed import \
+                    DistributedPeriodicSPHRenderer as periodic_class
+            self._sph = periodic_class(
                 self.store, progression, self._render_resolution,
-                self.periodicity_scale, backend=self._splat_backend)
+                *mesh_args, self.periodicity_scale,
+                backend=self._splat_backend)
         else:
             renderer_class = self._renderer_class_for_mode(self._render_mode)
             self._sph = renderer_class(self.store, progression,
-                                       self._render_resolution,
+                                       self._render_resolution, *mesh_args,
                                        backend=self._splat_backend)
         self.reset_view(rotation_matrix=old_rotation,
                         position_offset=old_position, scale=old_scale)
