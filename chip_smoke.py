@@ -85,8 +85,22 @@ layer alone against its float64 evaluation) against the single device;
 periodic tiling; and two processes over 2^22 rows split unequally through
 ``parallel/multiprocess.py`` (NCCL where each has a card, gloo where they
 share one; the negotiated slab length, both exit codes, a timeout) against
-one process's mesh.  ``--mesh-only`` runs the scene and phase G alone, on
-every card of the machine.  It prints:
+one process's mesh.  Phase H drives the host shell on the scene's
+Visualizer: ``save`` to ``.npy`` (bit for bit ``get_sph_image()``),
+``.tif`` (float16 RGB equal to the presentation of the same frame) and a
+figure (its ImportError where matplotlib is absent); a recorded session
+(a rotation, a zoom, a vmin/vmax change, explicit timestamps) replayed as
+30 EXPORT frames at 1024^2 through the recorder, each timed by CUDA
+events, the first against a direct EXPORT at the recorded starting view,
+``save_mp4`` where cv2 imports and the timestream through its pickle; two
+synchronised Visualizers over ``TestDataDeviceLoader(2**22)`` against a
+fresh render at their view; one EXPORT frame traced by
+``performance.trace`` (its span, the card's busy time, the idle share and
+the kernels run); the command line ``topsy_tpu_torch test://16777216 -r
+1024`` in process through the offscreen canvas; and the status line of
+one CHANGE frame (the fps of the frame clock's CUDA events).
+``--mesh-only`` runs the scene and phase G alone, on every card of the
+machine.  It prints:
 
 * the card's name and power limit (nvidia-smi);
 * ptxas' registers, stack and spills for every K2 and K3 kernel
@@ -118,7 +132,9 @@ every card of the machine.  It prints:
   version's and its bound; for K3 every timed call of phases S2 and SI;
   and K2 once more for each block path of phase L (``sorted``,
   ``sorted_small``, ``sorted_blocks``), with the launches of that path's
-  run and its calls' shapes;
+  run and its calls' shapes; phase H's paths are ``save``,
+  ``recorder_replay``, ``synchronised_export``, ``profiled_export``,
+  ``cli`` and ``status_frame``;
 * last, ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure, so the script exits nonzero and prints no
@@ -129,6 +145,7 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -2867,6 +2884,338 @@ def _phase_mesh(vis, export_image, truth_density, view):
     return launches, feed_err, accum_err, entries, summary
 
 
+# ---------------------------------------------------------------------------
+# phase H: the host shell around the image
+# ---------------------------------------------------------------------------
+
+STATUS_TEXT = r"^\$\d+\$ fps( /\d+\.\d+ds)?( /\d+\.\d+gf)?$"
+REPLAY_FPS = 30
+
+
+def trace_summary(prof, tag: str) -> dict:
+    """From a ``torch.profiler`` trace holding one ``record_function(tag)``
+    range: its span (from the range's start on the host to the end of the
+    later of the range and the card's last activity), the card's busy time
+    (the union of its kernels, copies and fills), the idle share of the
+    span, the kernels run on the card and the host's kernel launch calls,
+    in ms."""
+    import torch
+    events = prof.events()
+    host = [e for e in events if e.name == tag
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    check(len(host) == 1, f"the trace holds {len(host)} ranges {tag!r}")
+    t0, t1 = host[0].time_range.start, host[0].time_range.end
+    device = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.name != tag)
+    check(device, f"the trace of {tag} shows no device time")
+    busy, end = 0.0, float("-inf")
+    for a, b, _ in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = max(t1, end) - t0
+    kernels = [n for _, _, n in device
+               if not n.startswith(("Memcpy", "Memset"))]
+    launches = sum(1 for e in events if "LaunchKernel" in e.name
+                   and t0 <= e.time_range.start <= t1)
+    return {"span_ms": span / 1e3, "host_ms": (t1 - t0) / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / span,
+            "kernels": len(kernels), "copies_and_fills":
+            len(device) - len(kernels), "launch_calls": launches,
+            "first_device_ms": (device[0][0] - t0) / 1e3}
+
+
+def phase_host_shell(vis, dev):
+    """Phase H, the host shell on the scene's Visualizer (univariate,
+    ``test-quantity``, 2^24 at 1024^2): H1 ``save`` to ``.npy`` (equal to
+    ``get_sph_image()`` bit for bit), ``.tif`` (float16 RGB read back
+    through ``hdr_tiff``, equal to the presentation of the same frame) and
+    a figure (written where matplotlib imports, else its ImportError);
+    H2 the recorder: a scripted session with explicit timestamps (a
+    rotation, a zoom, a vmin/vmax change, 1 s) replayed through
+    ``_replay`` at 1024^2, each frame timed by CUDA events, the first
+    against a direct EXPORT at the recorded starting view, ``save_mp4``
+    where cv2 imports, the timestream through a pickle; H3 two
+    synchronised Visualizers over ``TestDataDeviceLoader(2**22)``; H4 one
+    EXPORT frame traced by ``performance.trace``; H5 the command line
+    ``topsy_tpu_torch test://16777216 -r 1024`` in process; H6 one CHANGE
+    frame with the status line.  Returns (launches per path, summary)."""
+    import pickle
+    import re
+    import types
+
+    import numpy as np
+    import torch
+
+    import topsy_tpu_torch
+    from topsy_tpu_torch import hdr_tiff, performance
+    from topsy_tpu_torch import recorder as recorder_module
+    from topsy_tpu_torch import visualizer as visualizer_module
+    from topsy_tpu_torch.loaders import TestDataDeviceLoader
+    from topsy_tpu_torch.visualizer import (DrawReason, OffscreenCanvas,
+                                            Visualizer)
+    t_all = time.perf_counter()
+    out_dir = os.path.join("build", "host_shell")
+    os.makedirs(out_dir, exist_ok=True)
+    launches, summary = {}, {}
+    text = visualizer_module.text_overlays_available()
+    log(f"phase H: matplotlib {'imports' if text else 'is absent'}; cv2 "
+        f"{'imports' if _imports('cv2') else 'is absent'}")
+    vis.show_status = vis.show_colorbar = vis.show_scalebar = False
+
+    # ---- H1: save, one EXPORT frame per format -----------------------------
+    reset_counts()
+    save_ms = {}
+    for ext in ("npy", "tif", "png"):
+        path = os.path.join(out_dir, f"scene.{ext}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            vis.save(path)
+        except ImportError as e:
+            check(ext == "png" and not text, f"H1 save .{ext}: {e}")
+            check(".npy" in str(e) and ".tif" in str(e), f"H1: the figure "
+                  f"branch's ImportError names no other format: {e}")
+            log(f"phase H1: save .{ext}: matplotlib is absent, the figure "
+                f"branch raised ImportError: {e}")
+            continue
+        save_ms[ext] = (time.perf_counter() - t0) * 1e3
+        if ext == "npy":
+            saved = np.load(path)
+            check(np.array_equal(saved, vis.get_sph_image()), "H1: the .npy "
+                  "is not get_sph_image() bit for bit")
+        elif ext == "tif":
+            saved = hdr_tiff.imread(path)
+            pres = vis._sph_presentation_image()[..., :3].astype(np.float16)
+            check(saved.dtype == np.float16
+                  and saved.shape == (RESOLUTION, RESOLUTION, 3)
+                  and np.array_equal(saved, pres), f"H1: the .tif "
+                  f"({saved.dtype}, {saved.shape}) is not the presentation's "
+                  "float16 RGB")
+        else:
+            check(os.path.getsize(path) > 1000, "H1: the figure is empty")
+        log(f"phase H1: save .{ext} {save_ms[ext]:.3f} ms (host wall, one "
+            f"EXPORT frame, readback and write), {os.path.getsize(path)} "
+            "bytes, held")
+    launches["save"] = read_counts("save", ("splat_feed",
+                                            "accumulate_groups"))
+    summary["save_ms"] = save_ms
+
+    # ---- H2: the recorder ----------------------------------------------------
+    clock = [0.0]
+    real_time = recorder_module.time
+    recorder_module.time = types.SimpleNamespace(time=lambda: clock[0])
+    try:
+        rec = recorder_module.VisualizationRecorder(vis)
+        rec.record()
+        clock[0] = 0.3
+        vis.rotate(0.3, 0.1)
+        vis.draw(DrawReason.CHANGE)
+        clock[0] = 0.6
+        vis.scale = vis.scale * 0.6
+        vis.draw(DrawReason.CHANGE)
+        clock[0] = 0.8
+        vmin, vmax = (vis.colormap.get_parameter(k) for k in ("vmin", "vmax"))
+        vis.colormap.update_parameters({"vmin": vmin + 0.2 * (vmax - vmin)})
+        vis.draw(DrawReason.CHANGE)
+        clock[0] = 1.0
+        rec.stop()
+    finally:
+        recorder_module.time = real_time
+    start = {k: rec._streams[k][0][1]
+             for k in ("rotation_matrix", "scale", "position_offset")}
+    reset_counts()
+    frames_ms, wall_ms = [], []
+    first_raw = None
+    replay = rec._replay(fps=REPLAY_FPS, resolution=(RESOLUTION, RESOLUTION),
+                         smooth=False, show_colorbar=False,
+                         show_scalebar=False)
+    while True:
+        ms, wall, frame = cuda_ms(lambda: next(replay, None))
+        if frame is None:
+            break
+        check(frame.shape == (RESOLUTION, RESOLUTION, 3)
+              and frame.dtype == np.uint8, f"H2: replayed frame "
+              f"{frame.shape} {frame.dtype}")
+        if first_raw is None:
+            first_raw = vis._sph.get_image()
+        frames_ms.append(ms)
+        wall_ms.append(wall)
+    launches["recorder_replay"] = read_counts(
+        "recorder replay", ("splat_feed", "accumulate_groups"))
+    n = len(frames_ms)
+    check(n == REPLAY_FPS, f"H2: {n} frames replayed, not {REPLAY_FPS}")
+    set_view(vis, (start["rotation_matrix"], start["position_offset"],
+                   start["scale"]))
+    vis._sph.render(DrawReason.EXPORT)
+    images_agree("H2 first replayed frame against a direct EXPORT at the "
+                 "recorded starting view", first_raw, vis._sph.get_image(),
+                 1e-3, 0.9999)
+    p90 = float(np.percentile(frames_ms, 90))
+    per_frame = {k: v / n for k, v in launches["recorder_replay"].items()}
+    log(f"phase H2: replayed {n} EXPORT frames at {RESOLUTION}^2: median "
+        f"{statistics.median(frames_ms):.3f} ms, p90 {p90:.3f} ms (CUDA "
+        f"events around each frame: render, colormap, readback, compose; "
+        f"host wall median {statistics.median(wall_ms):.3f} ms); launches "
+        f"per frame {per_frame}; frames ms {[round(t, 3) for t in frames_ms]}")
+    mp4_ms = None
+    if _imports("cv2"):
+        path = os.path.join(out_dir, "session.mp4")
+        t0 = time.perf_counter()
+        rec.save_mp4(path, fps=REPLAY_FPS, resolution=(RESOLUTION, RESOLUTION))
+        mp4_ms = (time.perf_counter() - t0) * 1e3
+        check(os.path.getsize(path) > 0, "H2: the mp4 is empty")
+        log(f"phase H2: save_mp4 (cv2 imports): {n} smoothed frames in "
+            f"{mp4_ms:.1f} ms (host wall), {os.path.getsize(path)} bytes")
+    else:
+        log("phase H2: cv2 is absent: save_mp4 not called")
+    path = os.path.join(out_dir, "session.pkl")
+    rec.save_timestream(path)
+    again = recorder_module.VisualizationRecorder(vis)
+    again.load_timestream(path)
+    check(again._end_time == rec._end_time
+          and pickle.dumps(again._streams) == pickle.dumps(rec._streams),
+          "H2: the timestream did not survive its pickle")
+    log(f"phase H2: the timestream ({sum(map(len, rec._streams.values()))} "
+        "events) round-trips through its pickle")
+    summary["replay"] = dict(frames=n, median_ms=statistics.median(frames_ms),
+                             p90_ms=p90, frames_ms=frames_ms,
+                             launches_per_frame=per_frame, mp4_ms=mp4_ms)
+    set_view(vis, (start["rotation_matrix"], start["position_offset"],
+                   start["scale"]))
+
+    # ---- H3: the synchroniser ------------------------------------------------
+    def device_vis():
+        v = Visualizer(data_loader_class=TestDataDeviceLoader,
+                       data_loader_args=(1 << 22,),
+                       data_loader_kwargs={"seed": 1337, "device": dev},
+                       render_resolution=RESOLUTION,
+                       canvas_class=OffscreenCanvas, device=dev)
+        v.show_status = v.show_colorbar = v.show_scalebar = False
+        return v
+    v1, v2 = device_vis(), device_vis()
+    v1.synchronize_with(v2)
+    v1.rotate(0.4, -0.2)
+    v1.scale = v1.scale * 0.7
+    v1.draw(DrawReason.CHANGE)
+    check(v2.scale == v1.scale
+          and np.array_equal(v2.rotation_matrix, v1.rotation_matrix)
+          and np.array_equal(v2.position_offset, v1.position_offset),
+          "H3: the second Visualizer did not follow the first")
+    fresh = device_vis()
+    set_view(fresh, (v1.rotation_matrix, v1.position_offset, v1.scale))
+    fresh._sph.render(DrawReason.EXPORT)
+    truth = fresh._sph.get_image()
+    reset_counts()
+    for i, v in enumerate((v1, v2)):
+        v._sph.render(DrawReason.EXPORT)
+        images_agree(f"H3 synchronised Visualizer {i + 1} against a fresh "
+                     "render at its view", v._sph.get_image(), truth,
+                     1e-3, 0.9999)
+    launches["synchronised_export"] = read_counts(
+        "synchronised EXPORT", ("splat_feed", "accumulate_groups"))
+    v1.stop_synchronizing()
+    del v1, v2, fresh, truth
+    torch.cuda.empty_cache()
+
+    # ---- H4: one single-device EXPORT frame traced ---------------------------
+    vis._sph.invalidate()
+    vis._sph.render(DrawReason.EXPORT)          # warm
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(out_dir, "trace")
+    reset_counts()
+    with performance.trace(trace_dir) as traced:
+        with torch.profiler.record_function("export_frame"):
+            vis._sph.invalidate()
+            vis._sph.render(DrawReason.EXPORT)
+    launches["profiled_export"] = read_counts(
+        "profiled EXPORT", ("splat_feed", "accumulate_groups"))
+    tsum = trace_summary(traced.profiler, "export_frame")
+    log(f"phase H4: one EXPORT frame under performance.trace "
+        f"({performance.trace_file(trace_dir)}): span {tsum['span_ms']:.3f} "
+        f"ms (host range {tsum['host_ms']:.3f} ms), card busy "
+        f"{tsum['busy_ms']:.3f} ms, idle share {tsum['idle_share']:.3f}, "
+        f"{tsum['kernels']} kernels and {tsum['copies_and_fills']} copies or "
+        f"fills on the card, {tsum['launch_calls']} kernel launch calls on "
+        f"the host, first device activity at {tsum['first_device_ms']:.3f} "
+        f"ms; K1/K2 counted {launches['profiled_export']}")
+    summary["trace"] = tsum
+
+    # ---- H5: the command line, in process ------------------------------------
+    opened = []
+    load = topsy_tpu_torch.load
+
+    def load_and_keep(*args, **kw):
+        opened.append(load(*args, **kw))
+        return opened[-1]
+
+    argv, sys.argv = sys.argv, ["topsy_tpu_torch", f"test://{N_PARTICLES}",
+                                "-r", str(RESOLUTION)]
+    topsy_tpu_torch.load = load_and_keep
+    package_logger = logging.getLogger("topsy_tpu_torch")
+    handlers, level = list(package_logger.handlers), package_logger.level
+    reset_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        topsy_tpu_torch.main()
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        sys.argv = argv
+        topsy_tpu_torch.load = load
+        package_logger.handlers[:] = handlers  # the CLI's DEBUG handler off
+        package_logger.setLevel(level)
+    launches["cli"] = read_counts("command line", ("splat_feed",
+                                                   "accumulate_groups"))
+    check(len(opened) == 1 and isinstance(opened[0].canvas, OffscreenCanvas),
+          "H5: the command line did not open one offscreen Visualizer")
+    frame = opened[0].last_frame
+    check(frame is not None and frame.shape == (480, 640, 4)
+          and frame[..., :3].std() > 0, "H5: the command line presented no "
+          "frame")
+    log(f"phase H5: topsy_tpu_torch test://{N_PARTICLES} -r {RESOLUTION} "
+        f"in process: {cli_s:.3f} s (host wall: the snapshot's generation, "
+        f"the constructor's EXPORT, the offscreen canvas's draws); launches "
+        f"{launches['cli']}")
+    summary["cli_s"] = cli_s
+    del opened, frame
+    torch.cuda.empty_cache()
+
+    # ---- H6: the status line -------------------------------------------------
+    vis.show_status = True
+    vis._last_status_update = 0.0
+    vis.__dict__.pop("_override_status_text_until", None)
+    reset_counts()
+    vis.draw(DrawReason.CHANGE)
+    launches["status_frame"] = read_counts("status frame", ("splat_feed",
+                                                            "accumulate_groups"))
+    sph = vis._sph
+    check(sph.frame_clock._cuda, "H6: the frame clock is not CUDA events")
+    status = vis._status.text
+    check(re.match(STATUS_TEXT, status) and sph.last_render_fps > 0,
+          f"H6: status {status!r}, fps {sph.last_render_fps}")
+    log(f"phase H6: status line {status!r}: fps {sph.last_render_fps:.3f} "
+        f"from the frame clock's CUDA events (this frame "
+        f"{sph.frame_clock.seconds() * 1e3:.3f} ms); the raster "
+        + ("was drawn" if text else "was not drawn (matplotlib is absent)"))
+    vis.show_status = False
+    summary["status"] = status
+    log(f"phase H: {time.perf_counter() - t_all:.1f} s")
+    return launches, summary
+
+
+def _imports(name: str) -> bool:
+    import importlib
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3440,9 +3789,14 @@ def main() -> int:
     accum_err = max(accum_err, g_accum_err)
     del export_image, truth_density
 
+    # ---- phase H: the host shell on the scene's Visualizer -------------------
+    vis.render_mode = "univariate"
+    set_view(vis, view)
+    hlaunches, hsummary = phase_host_shell(vis, dev)
+
     # ---- phase 8: kernels --------------------------------------------------
     # launches per path, each counted from 0 just before its path ran
-    paths = {**glaunches, "export": launches,
+    paths = {**glaunches, **hlaunches, "export": launches,
              "device_loader_export": dlaunches,
              "interactive": ilaunches, **mlaunches, **llaunches,
              **{f"surface_export_{k}": v for k, v in slaunches.items()},
@@ -3511,7 +3865,8 @@ def main() -> int:
         f"{json.dumps(dsummary)}; interactive {json.dumps(interactive)}; "
         f"modes {json.dumps(msummary)}; interactive surface "
         f"{json.dumps(si_summary)}; block paths {json.dumps(lsummary)}; "
-        f"arrays {json.dumps(asummary)}; mesh {json.dumps(gsummary)}")
+        f"arrays {json.dumps(asummary)}; mesh {json.dumps(gsummary)}; "
+        f"host shell {json.dumps(hsummary)}")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,15 @@ restated config constants, the world-to-clip matrix, the draw reasons, the
 kernel tables, the synthetic snapshot (bit for bit, with and without
 cells), the array loader with given smoothing lengths, the native kNN
 smoothing, the host presort, the progressions' block sequences, the cell
-layout and the scalebar units.  Exact equality throughout: the copies run
-the same numpy code."""
+layout, the scalebar units, the recorder's interpolators, the view
+synchroniser, the float16 TIFF writer (byte for byte) and reader, the line
+overlays' clip points and strokes, and the colormap controllers' layout
+specs.  Exact equality throughout: the copies run the same numpy code.
+The one stated difference is the controllers' colormap list: the
+original offers every matplotlib colormap, the port those it can sample
+(``color.maps.colormap_names``)."""
+
+import types
 
 import numpy as np
 import pytest
@@ -16,7 +23,12 @@ from topsy_tpu import drawreason as r_dr
 from topsy_tpu import loaders as r_loaders
 from topsy_tpu import native as r_native
 from topsy_tpu import progression as r_prog
+from topsy_tpu import hdr_tiff as r_hdr_tiff
 from topsy_tpu import units as r_units
+from topsy_tpu import view_synchronizer as r_sync
+from topsy_tpu.color import ui as r_ui
+from topsy_tpu.overlays import line as r_line
+from topsy_tpu.recorder import interpolator as r_interp
 from topsy_tpu.ops import kernels as r_kernels
 from topsy_tpu.ops import morton as r_morton
 
@@ -26,9 +38,18 @@ from topsy_tpu_torch import drawreason as p_dr
 from topsy_tpu_torch import loaders as p_loaders
 from topsy_tpu_torch import native as p_native
 from topsy_tpu_torch import progression as p_prog
+from topsy_tpu_torch import hdr_tiff as p_hdr_tiff
 from topsy_tpu_torch import units as p_units
+from topsy_tpu_torch import view_synchronizer as p_sync
+from topsy_tpu_torch.color import maps as p_maps
+from topsy_tpu_torch.color import ui as p_ui
+from topsy_tpu_torch.overlays import line as p_line
+from topsy_tpu_torch.recorder import interpolator as p_interp
 from topsy_tpu_torch.ops import kernels as p_kernels
 from topsy_tpu_torch.ops import morton as p_morton
+
+# the reference's native kNN, loaded before any comparison (see the module)
+from reference_native import reference_native_loaded  # noqa: E402,F401
 
 N = 50_000
 
@@ -206,13 +227,194 @@ def _units():
                                                                          "kpc")
 
 
+def _rotation(seed):
+    q, _ = np.linalg.qr(np.random.RandomState(seed).normal(size=(3, 3)))
+    return q * np.sign(np.linalg.det(q))
+
+
+def _interpolators():
+    """Every sampler of both packages over the same streams, sampled on the
+    same frame clock, gives the same values (or both no value)."""
+    rng = np.random.RandomState(4)
+    times = np.cumsum(rng.uniform(0.05, 0.4, 8))
+    times[0] = 0.0
+    streams = {
+        "scalar": [(t, float(v)) for t, v in zip(times, rng.normal(size=8))],
+        "vector": [(t, v) for t, v in zip(times, rng.normal(size=(8, 3)))],
+        "rotation": [(t, _rotation(i)) for i, t in enumerate(times)],
+        "step": [(t, s) for t, s in zip(times, "aabbbcdd")],
+        "single": [(0.0, 2.5)],
+    }
+    cases = [("LinearInterpolator", "scalar"), ("LinearInterpolator", "vector"),
+             ("RotationInterpolator", "rotation"),
+             ("SmoothedLinearInterpolator", "scalar"),
+             ("SmoothedLinearInterpolator", "vector"),
+             ("SmoothedLinearInterpolator", "single"),
+             ("SmoothedRotationInterpolator", "rotation"),
+             ("StepInterpolator", "step"), ("StepInterpolator", "scalar"),
+             ("SmoothedStepInterpolator", "scalar"),
+             ("SmoothedStepInterpolator", "single")]
+    clock = np.arange(0.0, times[-1] + 0.5, 1 / 30)
+    for cls, stream in cases:
+        ref = getattr(r_interp, cls)(streams[stream])
+        port = getattr(p_interp, cls)(streams[stream])
+        for t in clock:
+            a, b = port(t), ref(t)
+            if b is r_interp.Interpolator.no_value:
+                assert a is p_interp.Interpolator.no_value, (cls, stream, t)
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=f"{cls} {t}")
+    sample = r_interp.LinearInterpolator(streams["vector"])
+    for a, b in zip(p_interp.gaussian_smooth(sample, times[-1], 0.25, 30),
+                    r_interp.gaussian_smooth(sample, times[-1], 0.25, 30)):
+        assert a[0] == b[0]
+        np.testing.assert_array_equal(a[1], b[1])
+
+
+class _Target:
+    """A view of tests/test_synchronizer.py: counts its attribute sets."""
+
+    def __init__(self):
+        object.__setattr__(self, "set_count", 0)
+        object.__setattr__(self, "rotation_matrix", np.eye(3))
+        object.__setattr__(self, "scale", 1.0)
+        object.__setattr__(self, "position_offset", np.zeros(3))
+        object.__setattr__(self, "table", {"k": 0.0})
+
+    def __setattr__(self, key, value):
+        object.__setattr__(self, "set_count", self.set_count + 1)
+        object.__setattr__(self, key, value)
+
+
+def _synchronizer():
+    """The same script of updates, echoes, completions and removals on
+    three views of each package leaves the same states and set counts."""
+    def run(m):
+        views = [_Target() for _ in range(3)]
+        vs = m.ViewSynchronizer(synchronize=["rotation_matrix", "scale",
+                                             "position_offset", "table[k]"])
+        for v in views:
+            vs.add_view(v)
+        a, b, c = views
+        a.scale, a.rotation_matrix = 5.0, _rotation(1)
+        a.table["k"] = 3.0
+        vs.perpetuate_update(a)
+        vs.perpetuate_update(b)                 # an echo: dropped
+        vs.update_completed(c)
+        c.position_offset = np.arange(3.0)
+        vs.perpetuate_update(c)
+        vs.remove_view(b)
+        a.scale = 9.0
+        vs.perpetuate_update(a)
+        paths = ("scale", "position_offset", "table[k]", "rotation_matrix")
+        return [(v.set_count, [m._resolve_path_get(v, p) for p in paths])
+                for v in views]
+    for (na, va), (nb, vb) in zip(run(p_sync), run(r_sync)):
+        assert na == nb
+        for x, y in zip(va, vb):
+            np.testing.assert_array_equal(x, y)
+
+
+def _hdr_tiff(tmp_path):
+    """Byte-identical files; each package reads the other's."""
+    rng = np.random.RandomState(0)
+    for shape in ((5, 7, 3), (4, 6), (3, 2, 4)):
+        im = rng.random_sample(shape).astype(np.float16)
+        pa, pb = tmp_path / "port.tif", tmp_path / "ref.tif"
+        p_hdr_tiff.imwrite(str(pa), im)
+        r_hdr_tiff.imwrite(str(pb), im)
+        assert pa.read_bytes() == pb.read_bytes(), shape
+        np.testing.assert_array_equal(p_hdr_tiff.imread(str(pb)), im)
+        np.testing.assert_array_equal(r_hdr_tiff.imread(str(pa)), im)
+
+
+def _lines():
+    """The crosshairs' and the periodic box's clip points and strokes."""
+    rng = np.random.RandomState(2)
+    for i in range(3):
+        view = types.SimpleNamespace(
+            rotation_matrix=_rotation(i), position_offset=rng.normal(0, 20, 3),
+            scale=rng.uniform(40, 200), periodicity_scale=100.0)
+        base = rng.random_sample((60, 80, 4)).astype(np.float32)
+        out = []
+        for m in (p_line, r_line):
+            cross = m.Line(view, [(-1, 0, 0, 0), (1, 0, 0, 0), (200, 200, 0, 0),
+                                  (0, 1, 0, 0), (0, -1, 0, 0)],
+                           (1, 1, 1, 0.3), 10.0)
+            cube = m.SimCube(view, (1, 1, 1, 0.3), 10.0)
+            img = base.copy()
+            cross.composite(img)
+            cube.composite(img)
+            out.append((cross.get_clipspace_points(),
+                        cube.get_clipspace_points(), img))
+        for a, b in zip(*out):
+            np.testing.assert_array_equal(a, b)
+        assert not np.array_equal(out[0][2], base)
+    view.periodicity_scale = None
+    assert len(p_line.SimCube(view).get_clipspace_points()) == 0
+
+
+class _ControllerView:
+    """What the colormap controllers read of a visualizer."""
+
+    _params = {"colormap_name": "viridis", "vmin": -1.0, "vmax": 2.0,
+               "log": True, "ui_range_log": (-3.0, 3.0),
+               "ui_range_linear": (0.0, 5.0), "density_vmin": 0.1,
+               "density_vmax": 0.9, "ui_range_density": (0.0, 1.0),
+               "min_mag": 20.0, "max_mag": 30.0, "gamma": 1.5,
+               "smoothing_scale": 0.01, "light_color": (1.0, 0.5, 0.25),
+               "ambient_color": (0.1, 0.2, 0.3)}
+
+    def __init__(self, render_mode, quantity_name):
+        self.render_mode = render_mode
+        self.quantity_name = quantity_name
+        self.colormap = types.SimpleNamespace(
+            get_parameters=lambda: dict(self._params),
+            get_parameter=self._params.get)
+        self.data_loader = types.SimpleNamespace(
+            get_quantity_names=lambda: ["temp", "Rho", "metals"])
+        self._sph = types.SimpleNamespace(
+            get_density_cut_percentile_range=lambda: (0.0, 99.5),
+            get_density_cut_percentile=lambda: 50.0)
+
+
+def _spec_tree(spec, port):
+    """A layout spec as nested tuples; the colormap list left out."""
+    if hasattr(spec, "children"):
+        return ("layout", spec.type,
+                [_spec_tree(c, port) for c in spec.children])
+    options = spec.options
+    if spec.name == "colormap":
+        names = p_maps.colormap_names()
+        assert (options == names) if port else spec.value in options
+        options = None
+    return ("control", spec.name, spec.type, spec.label, options,
+            spec.value, spec.range)
+
+
+def _ui_spec():
+    for mode in ("univariate", "bivariate", "rgb", "rgb-hdr", "surface"):
+        for quantity in (None, "temp"):
+            trees = [_spec_tree(m.UnifiedColorMapController(
+                         _ControllerView(mode, quantity)).get_layout(),
+                         port=m is p_ui)
+                     for m in (p_ui, r_ui)]
+            assert trees[0] == trees[1], (mode, quantity)
+    assert (p_ui.SurfaceMapController.hex2rgbfloat("#ff8020")
+            == r_ui.SurfaceMapController.hex2rgbfloat("#ff8020"))
+    assert (p_ui.SurfaceMapController.rgbfloat2hex((1.0, 0.5, 0.125))
+            == r_ui.SurfaceMapController.rgbfloat2hex((1.0, 0.5, 0.125)))
+
+
 CASES = ["config", "camera", "drawreason", "kernels", "loader",
          "loader_cells", "array_loader", "native_knn", "presort",
-         "progressions", "cells", "units"]
+         "progressions", "cells", "units", "interpolators", "synchronizer",
+         "hdr_tiff", "lines", "ui_spec"]
 
 
 @pytest.mark.parametrize("name", CASES)
-def test_copy_matches_reference(name, loaders, layouts, monkeypatch):
+def test_copy_matches_reference(name, loaders, layouts, monkeypatch,
+                                tmp_path):
     {"config": _config,
      "camera": _camera,
      "drawreason": _drawreason,
@@ -224,4 +426,9 @@ def test_copy_matches_reference(name, loaders, layouts, monkeypatch):
      "presort": lambda: _presort(layouts),
      "progressions": lambda: _progressions(loaders, layouts, monkeypatch),
      "cells": lambda: _cells(loaders),
-     "units": _units}[name]()
+     "units": _units,
+     "interpolators": _interpolators,
+     "synchronizer": _synchronizer,
+     "hdr_tiff": lambda: _hdr_tiff(tmp_path),
+     "lines": _lines,
+     "ui_spec": _ui_spec}[name]()

@@ -30,6 +30,9 @@ from topsy_tpu_torch import native as p_native
 from topsy_tpu_torch.ops import knn as p_knn
 from topsy_tpu_torch.ops import knn_device as p_knn_device
 
+# the reference's native kNN, loaded before any comparison (see the module)
+from reference_native import reference_native_loaded  # noqa: E402,F401
+
 torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
     os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 

@@ -6,8 +6,11 @@ a CHANGE frame of the mesh's columns, the surface), presorts on the device
 and
 renders a device loader's snapshot from a decimation-mip tier, computes
 smoothing lengths (the device kNN on the CPU, an ArrayDataLoader's native
-kNN) and renders them through the scatter backend, with jax and topsy_tpu
-made unimportable, and its sources import neither."""
+kNN) and renders them through the scatter backend, imports every module
+of the host shell, saves to .npy / .tif / a figure, records and replays a
+session (and replays one the JAX package's recorder pickled) and runs the
+command line, with jax and topsy_tpu made unimportable, and its sources
+import neither."""
 
 import os
 import re
@@ -102,6 +105,45 @@ mvis.draw(DrawReason.CHANGE)
 assert mvis._sph.last_column_ranges and mvis._sph._splatter.has_presorted()
 mvis.render_mode = "surface"
 assert (mvis._sph.get_image()[..., 1] > 0).any()
+import importlib
+import os
+import pickle
+import runpy
+for name in ("performance", "view_synchronizer", "recorder",
+             "recorder.interpolator", "color.ui", "canvas", "canvas.jupyter",
+             "hdr_tiff", "overlays.line", "util"):
+    importlib.import_module("topsy_tpu_torch." + name)
+try:
+    importlib.import_module("topsy_tpu_torch.canvas.qt")
+except ImportError as e:          # PySide6 is not installed
+    assert "PySide6" in str(e), e
+out_dir = sys.argv[1]
+vis.render_mode = "univariate"
+for ext in ("npy", "tif", "png"):
+    vis.save(os.path.join(out_dir, "saved." + ext))
+    assert os.path.getsize(os.path.join(out_dir, "saved." + ext)) > 0
+from topsy_tpu_torch import hdr_tiff
+assert hdr_tiff.imread(os.path.join(out_dir, "saved.tif")).shape == (64, 64, 3)
+from topsy_tpu_torch.recorder import VisualizationRecorder
+rec = VisualizationRecorder(vis)
+rec.record()
+vis.rotate(0.2, 0.1)
+vis.draw(DrawReason.CHANGE)
+rec.stop()
+rec._end_time = 0.3
+frames = list(rec._replay(fps=10, resolution=(48, 32), smooth=True))
+assert len(frames) == 3 and frames[0].shape == (32, 48, 3)
+rec.load_timestream(os.path.join(out_dir, "reference_session.pkl"))
+frames = list(rec._replay(fps=10, resolution=(48, 32), smooth=False))
+assert len(frames) == 5 and all(np.isfinite(f).all() for f in frames)
+from topsy_tpu_torch import performance
+with performance.trace(os.path.join(out_dir, "trace")) as t:
+    vis._sph.render(DrawReason.EXPORT)
+assert t.profiler is not None
+load = topsy_tpu_torch.load
+topsy_tpu_torch.load = lambda *a, **k: load(*a, device="cpu", **k)
+sys.argv = ["topsy_tpu_torch", "test://1000", "-r", "32"]
+runpy.run_module("topsy_tpu_torch", run_name="__main__")
 for banned in ("jax", "topsy_tpu"):
     loaded = [m for m in sys.modules
               if m == banned or m.startswith(banned + ".")]
@@ -112,14 +154,42 @@ print("OK")
 BANNED_IMPORT = re.compile(r"^\s*(from|import) (jax|topsy_tpu)(\.|\s|$)")
 
 
-def test_port_renders_without_jax():
+def _reference_session(path):
+    """A half-second session recorded and pickled by the JAX package."""
+    import types
+    import topsy_tpu
+    import topsy_tpu.recorder as r_recorder
+    from topsy_tpu.canvas import OffscreenCanvas as RefCanvas
+    from topsy_tpu.drawreason import DrawReason
+    now = [0.0]
+    clock = types.SimpleNamespace(time=lambda: now[0])
+    saved, r_recorder.time = r_recorder.time, clock
+    try:
+        vis = topsy_tpu.test(1000, render_resolution=32,
+                             canvas_class=RefCanvas)
+        rec = r_recorder.VisualizationRecorder(vis)
+        rec.record()
+        now[0] = 0.2
+        vis.rotate(0.3, 0.0)
+        vis.scale = 60.0
+        vis.draw(DrawReason.CHANGE)
+        now[0] = 0.5
+        rec.stop()
+        rec.save_timestream(path)
+    finally:
+        r_recorder.time = saved
+
+
+def test_port_renders_without_jax(tmp_path):
+    _reference_session(str(tmp_path / "reference_session.pkl"))
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     # one process's share of the cores when pytest-xdist runs several
     # workers (torch's default, every core, oversubscribes them)
     env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // int(
         os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))))
-    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+    out = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
+                         cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().endswith("OK")

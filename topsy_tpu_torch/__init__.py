@@ -14,21 +14,28 @@ Every mode also renders over a particle mesh of several cards, shards or
 processes (``mesh=``, ``parallel/``, ``render/distributed.py``).
 The package imports ``torch`` and never ``jax`` nor anything of
 ``topsy_tpu``: it keeps pinned copies of the jax-free modules it needs
-(config, camera, drawreason, canvas, overlays, units, cells, progression,
-loaders, ops/kernels, ops/morton, native).
+(config, camera, drawreason, canvas with its Qt and Jupyter backends,
+overlays, units, cells, progression, loaders, ops/kernels, ops/morton,
+native, hdr_tiff, view_synchronizer, recorder, color/ui).  Its
+``performance`` module traces with ``torch.profiler``.
 
 Entry points mirror the reference, each returning a
 :class:`~topsy_tpu_torch.visualizer.Visualizer`: ``test(n, ...)`` (the
 seeded synthetic snapshot), ``load(filename, ...)`` (a snapshot file
 through pynbody, or ``"test://N"``) and ``topsy(snapshot)`` (an open
-pynbody snapshot).  Raw arrays go through ``loaders.ArrayDataLoader``
+pynbody snapshot).  The command line (``python -m topsy_tpu_torch FILE
+[options] [+ FILE ...]``, ``main``) parses ``+``-separated window batches
+as the reference's ``parse_args`` does and opens each through ``load`` on
+the card.  Raw arrays go through ``loaders.ArrayDataLoader``
 (``Visualizer(data_loader_class=ArrayDataLoader, data_loader_args=(pos,),
 ...)``), which computes missing smoothing lengths on the card.
 """
 
 from __future__ import annotations
 
+import argparse
 import logging
+import sys
 
 import torch
 
@@ -42,6 +49,95 @@ logger = logging.getLogger(__name__)
 # full float32, as the reference runs them at HIGHEST precision
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def parse_args(args=None):
+    """Parse CLI arguments into per-window batches separated by '+'."""
+    argparser = argparse.ArgumentParser(
+        description="Visualize an astrophysics simulation on the GPU. Multiple "
+                    "windows can be opened by separating groups of arguments "
+                    "with +.")
+    argparser.add_argument("filename",
+                           help="Path to a simulation file, or test://N for "
+                                "synthetic data with N particles")
+    argparser.add_argument("--resolution", "-r", type=int,
+                           default=config.DEFAULT_RESOLUTION,
+                           help="Resolution of the visualization")
+    argparser.add_argument("--colormap", "-m", type=str,
+                           default=config.DEFAULT_COLORMAP,
+                           help="Matplotlib colormap to use")
+    argparser.add_argument("--particle", "-p", type=str, default="dm",
+                           help="Particle type to visualise")
+    argparser.add_argument("--center", "-c", type=str, default="none",
+                           help="Centering method: 'halo-<N>', 'all', 'zoom' "
+                                "or 'none'")
+    argparser.add_argument("--quantity", "-q", type=str, default=None,
+                           help="Quantity to render instead of density")
+    argparser.add_argument("--tile", "-t", action="store_true", default=False,
+                           help="Wrap and tile the simulation box periodically")
+    argparser.add_argument("--render-mode", dest="render_mode",
+                           default="univariate",
+                           choices=["univariate", "bivariate", "rgb", "rgb-hdr",
+                                    "surface"],
+                           help="Rendering mode")
+    argparser.add_argument("--load-sphere", nargs="+", metavar="_", type=float,
+                           default=None,
+                           help="Load a sphere of particles: radius "
+                                "[, cx cy cz] in simulation units")
+
+    if args is None:
+        args = sys.argv[1:]
+    arg_batches = []
+    while len(args) > 0:
+        try:
+            split_index = args.index("+")
+        except ValueError:
+            split_index = len(args)
+        this_args = argparser.parse_args(args[:split_index])
+        if this_args.load_sphere is not None and len(this_args.load_sphere) not in (1, 4):
+            argparser.error("Invalid number of arguments for --load-sphere. "
+                            "Must be 1 or 4.")
+        arg_batches.append(this_args)
+        args = args[split_index + 1:]
+    return arg_batches
+
+
+_logging_set_up = False
+
+
+def setup_logging():
+    """Log the package's DEBUG records to stderr (once per process)."""
+    global _logging_set_up
+    if _logging_set_up:
+        return
+    _logging_set_up = True
+    logger.setLevel(logging.DEBUG)
+    ch = logging.StreamHandler()
+    ch.setLevel(logging.DEBUG)
+    ch.setFormatter(logging.Formatter(
+        "%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
+    logger.addHandler(ch)
+
+
+def main():
+    all_args = parse_args()
+    visualizers = []
+    for args in all_args:
+        vis = load(args.filename, center=args.center, resolution=args.resolution,
+                   particle=args.particle, tile=args.tile,
+                   sphere_radius=(args.load_sphere[0]
+                                  if args.load_sphere is not None else None),
+                   sphere_center=(tuple(args.load_sphere[1:])
+                                  if args.load_sphere is not None
+                                  and len(args.load_sphere) == 4 else None),
+                   render_mode=args.render_mode,
+                   colormap_name=args.colormap)
+        vis.quantity_name = args.quantity
+        vis.canvas.show()
+        visualizers.append(vis)
+
+    from .canvas import run_event_loop
+    run_event_loop(visualizers)
 
 
 def test(nparticle=config.TEST_DATA_NUM_PARTICLES_DEFAULT, **kwargs):
@@ -74,6 +170,7 @@ def load(filename: str, center: str = "none", particle: str = "gas",
     the file, an optional ``sphere_radius`` region) or for ``test://N``
     synthetic data."""
     from . import loaders, visualizer
+    setup_logging()
     if "test://" in filename:
         loader_class = loaders.TestDataLoader
         try:
@@ -98,3 +195,21 @@ def load(filename: str, center: str = "none", particle: str = "gas",
                                  periodic_tiling=tile,
                                  render_resolution=resolution,
                                  render_mode=render_mode, **kwargs)
+
+
+_force_is_jupyter = False
+
+
+def is_jupyter():
+    """Whether we are executing inside a Jupyter notebook/lab."""
+    global _force_is_jupyter
+    if _force_is_jupyter:
+        return True
+    from .util import is_jupyter as _isj
+    return _isj()
+
+
+def force_jupyter():
+    """Force is_jupyter() to return True (used in testing)."""
+    global _force_is_jupyter
+    _force_is_jupyter = True

@@ -1,10 +1,13 @@
-"""Canvas classes: event handling and the offscreen presentation target.
+"""Canvas backends: event handling and presentation targets.
 
-A pinned copy of ``VisualizerCanvasBase`` and ``OffscreenCanvas`` from
-``topsy_tpu/canvas/__init__.py``: drag rotates at 0.01 rad/px, shift-drag
-pans in the view plane, wheel zooms exponentially, double-click recenters
-with an arctan-eased glide, and keys s/r/h/w save / autorange / home /
-print-view.  The Qt and Jupyter canvases are ROADMAP item M16.
+A pinned copy of ``topsy_tpu/canvas/__init__.py``: drag rotates at 0.01
+rad/px, shift-drag pans in the view plane, wheel zooms exponentially,
+double-click recenters with an arctan-eased glide, and keys s/r/h/w save /
+autorange / home / print-view.
+
+Backends: ``OffscreenCanvas`` (always available; presents to numpy),
+``jupyter`` (ipywidgets, if installed) and ``qt`` (PySide6, if installed),
+chosen by ``canvas_class_for_environment``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import time
 
 import numpy as np
 
-from . import config
+from .. import config
 
 logger = logging.getLogger(__name__)
 
@@ -210,3 +213,37 @@ class OffscreenCanvas(VisualizerCanvasBase):
 
     def draw(self):
         pass
+
+
+def canvas_class_for_environment():
+    """Pick the canvas backend: jupyter if inside a notebook, qt if PySide6
+    is importable and a display exists, otherwise offscreen."""
+    from ..util import is_jupyter
+    if is_jupyter():
+        try:
+            from .jupyter import JupyterCanvas
+            return JupyterCanvas
+        except ImportError:
+            logger.warning("Jupyter detected but ipywidgets unavailable; "
+                           "falling back to offscreen canvas")
+    try:
+        from .qt import QtCanvas
+        return QtCanvas
+    except ImportError:
+        return OffscreenCanvas
+
+
+VisualizerCanvas = OffscreenCanvas
+
+
+def run_event_loop(visualizers):
+    """Run the appropriate event loop for the open visualizers: Qt when any
+    Qt canvas exists, otherwise draw each offscreen visualizer once."""
+    for vis in visualizers:
+        c = vis.canvas
+        if hasattr(c, "run_qt_loop"):
+            c.run_qt_loop()
+            return
+    for vis in visualizers:
+        if hasattr(vis.canvas, "perform_draw"):
+            vis.canvas.perform_draw()

@@ -52,6 +52,16 @@ def lut_rgba(name: str, num_points: int) -> np.ndarray:
     return cmap(np.linspace(0.001, 0.999, num_points)).astype(np.float32)
 
 
+def colormap_names() -> list[str]:
+    """The colormaps ``lut_rgba`` can sample: matplotlib's when it is
+    installed, otherwise those stored in ``luts.npz``."""
+    try:
+        import matplotlib
+    except ImportError:
+        return list(np.load(_LUT_FILE).files)
+    return list(matplotlib.colormaps.keys())
+
+
 def sample_lut_1d(values: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """Linear-interpolated 1-D LUT lookup; values already in [0, 1]."""
     n = lut.shape[0]

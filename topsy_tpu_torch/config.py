@@ -15,6 +15,8 @@ DEFAULT_SCALE = 200.0  # viewport half-width in kpc
 
 TARGET_FPS = 30  # adaptive LOD keeps this
 INITIAL_PARTICLES_TO_RENDER = 1e5
+STATUS_LINE_UPDATE_INTERVAL = 0.2  # seconds
+STATUS_LINE_UPDATE_INTERVAL_RAPID = 0.05
 
 GLIDE_TIME = 0.3  # seconds after double click to reach destination
 
@@ -33,6 +35,8 @@ CELL_LAYOUT_FRACTIONAL_PADDING = 1e-5
 
 # fraction of the frame budget below which no new block is attempted
 FRAME_BUDGET_CUTOFF_FRACTION = 0.4
+
+PROJECTED_DENSITY_NAME = "Projected density"  # the controllers' density entry
 
 MAX_SURFACE_SMOOTH_PIXELS = 100
 

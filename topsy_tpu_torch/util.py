@@ -5,7 +5,8 @@ Counterpart of ``topsy_tpu/util.py``.  On a CUDA device the barrier is
 accumulated figure is device time; on the CPU the barrier is a no-op and
 blocks are timed on the host clock (PyTorch's CPU ops run synchronously).
 ``FrameClock`` times a barrier-free interactive frame from its first launch
-to the end of its presentation readback.
+to the end of its presentation readback.  ``is_jupyter`` is a copy of the
+original's.
 """
 
 from __future__ import annotations
@@ -145,3 +146,13 @@ class FrameClock:
         if self._cuda:
             return self._start.elapsed_time(self._end) / 1e3
         return self._end - self._start
+
+
+def is_jupyter() -> bool:
+    """True when running inside a Jupyter kernel."""
+    try:
+        from IPython import get_ipython
+    except ImportError:
+        return False
+    ip = get_ipython()
+    return ip is not None and ip.has_trait("kernel")

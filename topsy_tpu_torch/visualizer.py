@@ -10,14 +10,22 @@ draw that leaves the progression incomplete requests a REFINE draw),
 ``rotate``, ``prevent_sph_rendering``, the mode switch with its canvas
 capability check and its revert on failure, ``canvas_format`` (float16
 presentation for ``rgb-hdr``) and the ``render_mode`` / ``scale`` /
-``rotation_matrix`` / ``position_offset`` / ``quantity_name`` properties.
+``rotation_matrix`` / ``position_offset`` / ``quantity_name`` / ``averaging``
+properties, the host shell around the image (the status line of fps,
+downsampling and geometry factor, ``display_status``, the crosshairs of a
+shift-drag, the periodic box's wireframe, ``save`` to ``.npy``, float16
+``.tif`` / ``.tiff`` or a matplotlib figure, ``show`` and the notebook
+display) and, on ``Visualizer``, the view synchroniser's mixin.
 ``splat_backend``
 (``"atlas"``, the default, or ``"scatter"``) is handed to every renderer.
 The device is explicit: ``device="cuda"`` (the default) needs a GPU and
 raises without one; tests pass ``"cpu"``.  The canvas and overlays are the
 port's copies of the reference's classes; the colorbar (which needs
-matplotlib) is built on first use.  ``OffscreenCanvas`` and ``DrawReason``
-are re-exported here for callers of the port.
+matplotlib) is built on first use.  Where matplotlib is not installed
+the presentation draws no text overlay (colorbar, scale bar, status
+line: each is a matplotlib raster) and says so once in the log; the
+status text is still kept up to date.  ``OffscreenCanvas``
+and ``DrawReason`` are re-exported here for callers of the port.
 ``mesh`` (``parallel.make_mesh``) renders every mode over a particle
 mesh through the renderers of ``render/distributed.py``; the mesh's first
 shard must be ``device``, which holds the store.
@@ -25,12 +33,15 @@ shard must be ``device``, which holds the store.
 
 from __future__ import annotations
 
+import functools
 import logging
+import time
 from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+from . import canvas as canvas_module
 from . import config
 from .camera import x_rotation_matrix, y_rotation_matrix
 from .canvas import OffscreenCanvas
@@ -38,14 +49,28 @@ from .color import ColormapHolder
 from .color.maps import fit_to_window
 from .drawreason import DrawReason
 from .loaders import AbstractDataLoader, TestDataLoader
+from .overlays.line import Line, SimCube
 from .overlays.scalebar import ScalebarOverlay
 from .overlays.text import TextOverlay
 from .render import periodic, sph, surface
 from .render.store import ParticleStore
+from .view_synchronizer import SynchronizationMixin
 
 logger = logging.getLogger(__name__)
 
 VALID_RENDER_MODES = ("univariate", "bivariate", "rgb", "rgb-hdr", "surface")
+
+
+@functools.cache
+def text_overlays_available() -> bool:
+    """Whether matplotlib, which rasterizes the text overlays, imports."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        logger.warning("matplotlib is not installed: presentations draw no "
+                       "colorbar, scale bar or status line")
+        return False
+    return True
 
 
 def resolve_device(device) -> torch.device:
@@ -91,12 +116,14 @@ class VisualizerBase:
         self._sph = None
         self._prevent_sph_rendering = False
         self._colormap: ColormapHolder | None = None
+        self.crosshairs_visible = False
         self.show_colorbar = True
         self.show_scalebar = True
+        self._last_status_update = 0.0
         self.last_frame: np.ndarray | None = None
 
         if canvas_class is None:
-            canvas_class = OffscreenCanvas
+            canvas_class = canvas_module.canvas_class_for_environment()
         self.canvas = canvas_class(visualizer=self, title="topsy_tpu_torch")
 
         self.data_loader: AbstractDataLoader = data_loader_class(
@@ -113,6 +140,11 @@ class VisualizerBase:
         self._status = TextOverlay(self, "topsy_tpu_torch", (-0.9, 0.9), 40,
                                    color=(1, 1, 1, 1))
         self._scalebar = ScalebarOverlay(self)
+        self._crosshairs = Line(self,
+                                [(-1, 0, 0, 0), (1, 0, 0, 0), (200, 200, 0, 0),
+                                 (0, 1, 0, 0), (0, -1, 0, 0)],
+                                (1, 1, 1, 0.3), 10.0)
+        self._cube = SimCube(self, (1, 1, 1, 0.3), 10.0)
 
     def _renderer_class_for_mode(self, render_mode):
         if self._mesh is not None:
@@ -309,6 +341,10 @@ class VisualizerBase:
                                           "log": None})
         self._initialize_colormap_and_bar()
 
+    @property
+    def averaging(self):
+        return self.quantity_name is not None
+
     # -- view manipulation ---------------------------------------------------------
 
     def rotate(self, x_angle, y_angle):
@@ -378,15 +414,55 @@ class VisualizerBase:
         self._sph.notify_presentation_barrier()
         img = host.numpy().astype(np.float32)
         img[..., 3] = 1.0
-        if self.show_colorbar and self._colorbar_overlay() is not None:
+        text = text_overlays_available()
+        if (self.show_colorbar and text
+                and self._colorbar_overlay() is not None):
             self._colorbar.composite(img)
-        if self.show_scalebar:
+        if self.show_scalebar and text:
             self._scalebar.composite(img)
+        if self.crosshairs_visible:
+            self._crosshairs.composite(img)
+        if self._periodic_tiling:
+            self._cube.composite(img)
         if self.show_status:
-            self._status.composite(img)
+            self._update_and_display_status(img)
         if self.canvas_format == "rgba16float":
             return img.astype(np.float16)
         return (np.clip(img, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
+
+    def display_status(self, text, timeout=0.5):
+        self._override_status_text = text
+        self._override_status_text_until = time.time() + timeout
+
+    def _update_and_display_status(self, img):
+        """The status line: an override of ``display_status`` while it
+        lasts, otherwise (every ``STATUS_LINE_UPDATE_INTERVAL`` seconds)
+        the fps of the running mean of frame times (CUDA events on the
+        card), the downsampling factor and the geometry factor."""
+        now = time.time()
+        if (hasattr(self, "_override_status_text_until")
+                and now < self._override_status_text_until):
+            if (self._status.text != self._override_status_text
+                    and now - self._last_status_update
+                    > config.STATUS_LINE_UPDATE_INTERVAL_RAPID):
+                self._status.text = self._override_status_text
+                self._last_status_update = now
+                self._status.update()
+        elif (now - self._last_status_update
+                > config.STATUS_LINE_UPDATE_INTERVAL
+                and self._sph.last_render_fps):
+            self._last_status_update = now
+            text = f"${self._sph.last_render_fps:.0f}$ fps"
+            factor = np.round(self._sph.last_render_mass_scale, 1)
+            if factor > 1.1:
+                text += f" /{factor:.1f}ds"
+            geom = self._sph.render_progression.get_fraction_volume_selected()
+            if geom < 0.9:
+                text += f" /{1.0 / geom:.1f}gf"
+            self._status.text = text
+            self._status.update()
+        if text_overlays_available():
+            self._status.composite(img)
 
     # -- image access ----------------------------------------------------------------
 
@@ -400,6 +476,10 @@ class VisualizerBase:
         """Colormapped SPH image, no overlays, (res, res, 4): uint8, or
         float16 for ``rgb-hdr``."""
         self.render_sph(DrawReason.EXPORT)
+        return self._sph_presentation_image()
+
+    def _sph_presentation_image(self) -> np.ndarray:
+        """The colormapped image of the renderer's last frame."""
         rgba = self._colormap.to_rgba(self._sph.get_output_image(),
                                       self._sph.last_render_mass_scale)
         rgba = rgba.cpu().numpy()
@@ -426,6 +506,67 @@ class VisualizerBase:
         finally:
             self._prevent_sph_rendering = False
 
+    def save(self, filename="output.pdf"):
+        """Render one EXPORT frame and save it: ``.npy`` the raw image
+        (``get_sph_image``), ``.tif`` / ``.tiff`` the presentation's RGB as
+        float16 (tifffile where installed, else ``hdr_tiff``), any other
+        name a matplotlib figure with axes and colorbar."""
+        self._sph.render(DrawReason.EXPORT)
+        if filename.endswith(".npy"):
+            np.save(filename, self.get_sph_image())
+            return
+        if filename.endswith((".tif", ".tiff")):
+            image = self._sph_presentation_image()[..., :3]
+            try:
+                import tifffile
+                tifffile.imwrite(filename, image.astype(np.float16),
+                                 photometric="rgb")
+            except ImportError:
+                from . import hdr_tiff
+                hdr_tiff.imwrite(filename, image.astype(np.float16))
+            logger.info("Saved %s", filename)
+            return
+        try:
+            import matplotlib.pyplot as p
+        except ImportError as e:
+            raise ImportError(
+                f"saving {filename!r} as a figure needs matplotlib, which is "
+                "not installed; save to a .npy file (the raw image) or a "
+                ".tif / .tiff file (float16 RGB) instead") from e
+        colormap_params = self._colormap.get_parameters()
+        fig = p.figure()
+        p.clf()
+        try:
+            p.set_cmap(colormap_params["colormap_name"])
+        except ValueError:
+            pass
+        image = self._sph_presentation_image()
+        if image.dtype == np.float16:
+            image = np.clip(image.astype(np.float32), 0, 1)
+        extent = np.array([-1.0, 1.0, -1.0, 1.0]) * self.scale
+        p.imshow(image, extent=extent)
+        p.xlabel("$x$/kpc")
+        colorbar = self._colorbar_overlay()
+        if colorbar is not None:
+            p.colorbar(p.cm.ScalarMappable(
+                norm=p.Normalize(vmin=self._colormap.get_parameter("vmin"),
+                                 vmax=self._colormap.get_parameter("vmax")),
+                cmap=colormap_params["colormap_name"]), ax=p.gca()
+            ).set_label(colorbar.label)
+        p.savefig(filename)
+        p.close(fig)
+        logger.info("Saved %s", filename)
 
-class Visualizer(VisualizerBase):
+    def show(self, force=False):
+        self.canvas.show()
+
+    def _ipython_display_(self):
+        if hasattr(self.canvas, "ipython_display_with_widgets"):
+            self.canvas.ipython_display_with_widgets()
+        else:
+            from IPython.display import display
+            display(repr(self))
+
+
+class Visualizer(SynchronizationMixin, VisualizerBase):
     pass
