@@ -1357,6 +1357,140 @@ def export_frame_ms(sph):
     return frame_ms, wall_ms
 
 
+def collapse_f64(atlas, pyramid, kind):
+    """``splat_atlas.collapse_atlas`` evaluated in float64: the same crops
+    and the same (float32) interpolation matrices of ``kind``, each level's
+    two products and sums in float64.  Returns (res, res, C) float64."""
+    import torch
+    from topsy_tpu_torch.ops import splat_atlas
+    from topsy_tpu_torch.ops.composite import _upsample2x_matrix
+    row_offs, _, _ = splat_atlas.atlas_layout(pyramid)
+    a = atlas.double()
+    pad = splat_atlas.COL_PAD
+    levels = [a[:, r0:r0 + n, pad:pad + n]
+              for r0, n in zip(row_offs, pyramid.level_resolutions)]
+    out = levels[-1]
+    for lvl in range(pyramid.num_levels - 2, -1, -1):
+        target = pyramid.level_resolutions[lvl]
+        mh, mw = (torch.as_tensor(_upsample2x_matrix(n, kind),
+                                  dtype=torch.float64, device=a.device)
+                  for n in out.shape[1:])
+        up = torch.einsum("chw,hH,wW->cHW", out, mh, mw)
+        out = levels[lvl] + up[:, :target, :target]
+    return out.permute(1, 2, 0)
+
+
+def phase_catmull(vis, export_image, card):
+    """Phase C: the EXPORT path of the scene's view with
+    ``config.PYRAMID_COLLAPSE_FILTER = "catmull"``, restored afterwards.
+    K1 and K2 held against their plain versions on piece 0 as in phases
+    4-5; the collapse alone (piece 0's atlas after its three K2 calls)
+    against its float64 evaluation within 1e-5 of the image maximum, timed
+    beside the 'spline' collapse; EXPORT frames in turns, 'spline',
+    'catmull', 'catmull', 'spline' (each turn 2 warm-ups and 5 frames by
+    CUDA events; the medians of each filter's 10), each catmull frame
+    launching the EXPORT path's one K1 and three K2 calls a piece;
+    the frame against phase 7's 'spline' frame: sums within rel 1e-3,
+    density correlation > 0.9999.  Returns (launches, K1 max diff, K2 max
+    diff, summary)."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch import config
+    from topsy_tpu_torch.ops import splat, splat_accum, splat_atlas, \
+        splat_feed
+    sph = vis._sph
+    G = vis.store.presorted_layout.pad_group
+    pyr = splat.default_pyramid(RESOLUTION)
+    _, atlas_rows, atlas_cols = splat_atlas.atlas_layout(pyr)
+    saved = config.PYRAMID_COLLAPSE_FILTER
+    check(saved == "spline", f"the scene's collapse filter is {saved!r}")
+    summary = {"card": card}
+    try:
+        config.PYRAMID_COLLAPSE_FILTER = "catmull"
+        # ---- C1: K1 and K2 on piece 0, exactly as phases 4-5 ---------------
+        piece = sph.pieces()[0]
+        fargs, fkw = feed_args(vis, piece)
+        out_k = splat_feed.splat_feed_triton(*fargs, **fkw)
+        feed_err = compare_feed(f"C piece {piece}", out_k,
+                                splat_feed.splat_feed_plain(*fargs, **fkw))
+        calls, _ = k2_calls(out_k, G, atlas_rows, atlas_cols)
+        accum_err = 0.0
+        for shape, kw in calls.items():
+            err, ref_max, active = compare_k2(f"C piece {piece} {shape}", kw)
+            accum_err = max(accum_err, err)
+            log(f"phase C K2 piece {piece} {shape}: ok; groups "
+                f"{kw['flags'].shape[0]} of {kw['group']} (active {active}); "
+                f"max|atlas| {ref_max:.4e}, max abs diff {err:.3e}")
+        log(f"phase C K1 piece {piece}: ok; max abs diff {feed_err:.3e}")
+        # ---- C2: the collapse alone against float64 ------------------------
+        atlas = splat_accum.accumulate_groups(**calls["main"])
+        splat_accum.accumulate_groups(**calls["tier2"], atlas0=atlas)
+        splat_accum.accumulate_groups(**calls["tier3"], atlas0=atlas)
+        del out_k, calls
+        got = splat_atlas.collapse_atlas(atlas, pyr)
+        want = collapse_f64(atlas, pyr, "catmull")
+        peak = float(want.abs().max())
+        err = float((got.double() - want).abs().max())
+        check(np.isfinite(peak) and peak > 0, "the catmull collapse of "
+              "piece 0 is empty")
+        check(err <= 1e-5 * peak, f"the catmull collapse differs from its "
+              f"float64 evaluation by {err} > 1e-5 * {peak}")
+        collapse_ms = timed_ms(lambda: splat_atlas.collapse_atlas(atlas, pyr),
+                               10)
+        config.PYRAMID_COLLAPSE_FILTER = "spline"
+        spline_collapse_ms = timed_ms(
+            lambda: splat_atlas.collapse_atlas(atlas, pyr), 10)
+        del atlas, got, want
+        log(f"phase C2: piece 0's collapse with 'catmull' within "
+            f"{err:.3e} of its float64 evaluation (image max {peak:.4e}, "
+            f"{err / peak:.2e} of it); {collapse_ms:.3f} ms against "
+            f"'spline' {spline_collapse_ms:.3f} ms (CUDA events, mean of "
+            "10)")
+        # ---- C3: EXPORT frames in turns: spline, catmull, catmull, spline ---
+        spline_ms = export_frame_ms(sph)[0]
+        config.PYRAMID_COLLAPSE_FILTER = "catmull"
+        reset_counts()
+        frame_ms, wall_ms = export_frame_ms(sph)
+        frame_ms += export_frame_ms(sph)[0]
+        launches = read_counts("catmull EXPORT", ("splat_feed",
+                                                  "accumulate_groups"))
+        raw = sph.get_image()
+        config.PYRAMID_COLLAPSE_FILTER = "spline"
+        spline_ms += export_frame_ms(sph)[0]
+        n_frames = 2 * (FRAMES + 2)
+        pieces = len(sph.pieces())
+        check(launches["splat_feed"] == pieces * n_frames
+              and launches["accumulate_groups"] == 3 * pieces * n_frames,
+              f"the {n_frames} catmull EXPORT frames of {pieces} pieces "
+              f"launched {launches}")
+    finally:
+        config.PYRAMID_COLLAPSE_FILTER = saved
+    med = statistics.median(frame_ms)
+    check(raw.shape == export_image.shape and np.isfinite(raw).all(),
+          f"the catmull EXPORT image {raw.shape} is not finite")
+    a, b = raw.astype(np.float64), export_image.astype(np.float64)
+    rels = [abs(a[..., c].sum() / b[..., c].sum() - 1.0)
+            for c in range(a.shape[-1])]
+    corr = float(np.corrcoef(a[..., 0].ravel(), b[..., 0].ravel())[0, 1])
+    max_rel = float(np.abs(a - b).max() / np.abs(b).max())
+    check(max(rels) <= 1e-3, f"catmull against spline: channel sums rel "
+          f"{rels} > 1e-3")
+    check(corr > 0.9999, f"catmull against spline: density correlation "
+          f"{corr} <= 0.9999")
+    summary.update(export_ms=med,
+                   spline_export_ms=statistics.median(spline_ms),
+                   frames_ms=[round(t, 3) for t in frame_ms],
+                   spline_frames_ms=[round(t, 3) for t in spline_ms],
+                   wall_ms=statistics.median(wall_ms),
+                   collapse_ms=collapse_ms,
+                   spline_collapse_ms=spline_collapse_ms,
+                   collapse_f64_rel=err / peak, sum_rel=rels, corr=corr,
+                   max_rel=max_rel, dropped=sph.last_dropped_splats,
+                   launches=launches)
+    log("phase C: " + json.dumps(summary))
+    return launches, feed_err, accum_err, summary
+
+
 def reset_counts():
     from topsy_tpu_torch.ops import splat_accum, splat_feed, zsplat_accum
     splat_feed.launches = 0
@@ -2327,8 +2461,9 @@ def hold_k1_calls(tag, calls):
 
 def hold_k3_calls(tag, calls):
     """Every recorded K3 call bit-identical to its plain version from the
-    call's own starting keys; the first timed.  Returns (number held,
-    (ms, plain ms))."""
+    call's own starting keys; the first timed, beside its bound from
+    ``k3_work`` on its own inputs.  Returns (number held, (ms, plain ms,
+    bound ms, bound by))."""
     import torch
     from topsy_tpu_torch.ops import zsplat_accum
     t = None
@@ -2348,10 +2483,14 @@ def hold_k3_calls(tag, calls):
                f"{kw['group']}, bit-identical")
         if i == 0:
             k_t = keys0.clone()
+            nbytes, ops = k3_work(kw, keys0)[:2]
             t = (timed_from_ms(
                 lambda: zsplat_accum.accumulate_max_packed_cuda(k_t, **kw),
-                lambda: k_t.copy_(keys0), 5), plain_ms)
-            msg += f"; {t[0]:.3f} ms (plain {plain_ms:.3f} ms, host wall)"
+                lambda: k_t.copy_(keys0), 5), plain_ms,
+                *bound(nbytes, ops, F32_OPS_PER_S))
+            msg += (f"; {t[0]:.3f} ms (plain {plain_ms:.3f} ms, host wall);"
+                    f" bound {t[2]:.4f} ms ({t[3]}), {t[2] / t[0]:.1%} of "
+                    "it")
         log(msg)
     return len(calls), t
 
@@ -3404,6 +3543,12 @@ def main() -> int:
         log(f"card: {card}")
         return 0
 
+    # ---- phase C: the EXPORT path with the Catmull-Rom pyramid collapse ---
+    claunches, c_feed_err, c_accum_err, csummary = phase_catmull(
+        vis, export_image, card)
+    feed_err = max(feed_err, c_feed_err)
+    accum_err = max(accum_err, c_accum_err)
+
     # ---- phase D: the device loader, bench.py's path ------------------------
     dlaunches, dsummary = phase_device_loader(dev, sph)
     torch.cuda.empty_cache()
@@ -3797,6 +3942,7 @@ def main() -> int:
     # ---- phase 8: kernels --------------------------------------------------
     # launches per path, each counted from 0 just before its path ran
     paths = {**glaunches, **hlaunches, "export": launches,
+             "export_catmull": claunches,
              "device_loader_export": dlaunches,
              "interactive": ilaunches, **mlaunches, **llaunches,
              **{f"surface_export_{k}": v for k, v in slaunches.items()},
@@ -3861,7 +4007,8 @@ def main() -> int:
                         **entry})
     interactive = {k: v for k, v in isummary.items()
                    if k not in ("feed_t", "accum_t")}
-    log(f"summary: presort {json.dumps(psummary)}; device loader "
+    log(f"summary: catmull {json.dumps(csummary)}; presort "
+        f"{json.dumps(psummary)}; device loader "
         f"{json.dumps(dsummary)}; interactive {json.dumps(interactive)}; "
         f"modes {json.dumps(msummary)}; interactive surface "
         f"{json.dumps(si_summary)}; block paths {json.dumps(lsummary)}; "

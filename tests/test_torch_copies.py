@@ -7,7 +7,11 @@ smoothing, the host presort, the progressions' block sequences, the cell
 layout, the scalebar units, the recorder's interpolators, the view
 synchroniser, the float16 TIFF writer (byte for byte) and reader, the line
 overlays' clip points and strokes, and the colormap controllers' layout
-specs.  Exact equality throughout: the copies run the same numpy code.
+specs; and, case by case, the helpers the reference's own tests exercise
+(``Camera``, ``clip_to_pixel``, ``kernel_image``, ``norm_value``,
+``native.available``, ``util.is_inside_ipython``), each under the
+reference test's property as well.  Exact equality throughout: the copies
+run the same numpy code.
 The one stated difference is the controllers' colormap list: the
 original offers every matplotlib colormap, the port those it can sample
 (``color.maps.colormap_names``)."""
@@ -25,6 +29,7 @@ from topsy_tpu import native as r_native
 from topsy_tpu import progression as r_prog
 from topsy_tpu import hdr_tiff as r_hdr_tiff
 from topsy_tpu import units as r_units
+from topsy_tpu import util as r_util
 from topsy_tpu import view_synchronizer as r_sync
 from topsy_tpu.color import ui as r_ui
 from topsy_tpu.overlays import line as r_line
@@ -40,6 +45,7 @@ from topsy_tpu_torch import native as p_native
 from topsy_tpu_torch import progression as p_prog
 from topsy_tpu_torch import hdr_tiff as p_hdr_tiff
 from topsy_tpu_torch import units as p_units
+from topsy_tpu_torch import util as p_util
 from topsy_tpu_torch import view_synchronizer as p_sync
 from topsy_tpu_torch.color import maps as p_maps
 from topsy_tpu_torch.color import ui as p_ui
@@ -75,6 +81,10 @@ def _config():
             "INTERACTIVE_USE_PRESORTED"} <= set(names)
     for n in names:
         assert getattr(p_config, n) == getattr(r_config, n), n
+    from topsy_tpu.visualizer import VisualizerBase as RefBase
+    from topsy_tpu_torch.visualizer import VisualizerBase
+    assert (VisualizerBase.colorbar_aspect_ratio
+            == RefBase.colorbar_aspect_ratio == r_config.COLORBAR_ASPECT_RATIO)
 
 
 def _camera():
@@ -432,3 +442,107 @@ def test_copy_matches_reference(name, loaders, layouts, monkeypatch,
      "hdr_tiff": lambda: _hdr_tiff(tmp_path),
      "lines": _lines,
      "ui_spec": _ui_spec}[name]()
+
+
+def _camera_class():
+    # tests/test_camera.py::test_camera_rotate_composition, on both copies
+    cams = [m.Camera(scale=2.0) for m in (p_camera, r_camera)]
+    for cam in cams:
+        cam.rotate(0.1, -0.2)
+    expected = (p_camera.x_rotation_matrix(0.1)
+                @ p_camera.y_rotation_matrix(-0.2))
+    assert cams[0].rotation_matrix == pytest.approx(expected)
+    assert np.allclose(cams[0].rotation_matrix @ cams[0].rotation_matrix.T,
+                       np.eye(3))
+    np.testing.assert_array_equal(cams[0].rotation_matrix,
+                                  cams[1].rotation_matrix)
+    rng = np.random.RandomState(1)
+    q, _r = np.linalg.qr(rng.normal(size=(3, 3)))
+    off = rng.normal(0, 10, 3)
+    cams = [m.Camera(q, off, 37.5) for m in (p_camera, r_camera)]
+    np.testing.assert_array_equal(cams[0].matrix(), cams[1].matrix())
+    dup = cams[0].copy()
+    dup.rotate(0.3, 0.0)
+    dup.position_offset[0] += 1.0
+    assert isinstance(dup, p_camera.Camera) and dup.scale == 37.5
+    np.testing.assert_array_equal(cams[0].rotation_matrix, q)
+    np.testing.assert_array_equal(cams[0].position_offset, off)
+
+
+def _clip_to_pixel():
+    # tests/test_camera.py::test_clip_to_pixel_centres, then equality
+    res = 8
+    assert p_camera.clip_to_pixel(np.array([0.0, 0.0]), res) == \
+        pytest.approx([3.5, 3.5])
+    assert p_camera.clip_to_pixel(np.array([-1 + 1 / res, 1 - 1 / res]),
+                                  res) == pytest.approx([0.0, 0.0])
+    xy = np.random.RandomState(2).uniform(-1.2, 1.2, (5, 7, 2))
+    for r in (8, 64, 1024):
+        np.testing.assert_array_equal(p_camera.clip_to_pixel(xy, r),
+                                      r_camera.clip_to_pixel(xy, r))
+
+
+def _kernel_image(n):
+    # tests/test_kernels.py::test_kernel_image_mass_conserving
+    im = p_kernels.kernel_image(n)
+    assert im.sum() * (4.0 / n) ** 2 == pytest.approx(1.0, rel=1e-6)
+    np.testing.assert_array_equal(im, r_kernels.kernel_image(n))
+
+
+def _norm_value(mode):
+    # tests/test_kernels.py::test_norm_table's properties, read through
+    # norm_value: c(3) near 1, finite and positive, clamped off the table
+    hs, _cs = p_kernels.norm_table(mode)
+    assert p_kernels.norm_value(3.0, mode) == pytest.approx(1.0, rel=0.01)
+    h = np.concatenate([[hs[0] / 10, hs[-1] * 10],
+                        np.exp(np.random.RandomState(3).uniform(
+                            np.log(hs[0]), np.log(hs[-1]), 200))])
+    c = p_kernels.norm_value(h, mode)
+    assert np.all(np.isfinite(c)) and np.all(c > 0)
+    assert c[0] == p_kernels.norm_value(hs[0], mode)
+    np.testing.assert_array_equal(c, r_kernels.norm_value(h, mode))
+
+
+def _native_available(monkeypatch):
+    # tests/test_knn_native.py gates its cases on available(); the port's
+    # loads here as the reference's does, and then its kNN is exact
+    from scipy.spatial import cKDTree
+    assert p_native.available() is r_native.available() is True
+    rng = np.random.RandomState(1)
+    pos = rng.normal(0, 1, (3000, 3)).astype(np.float32)
+    pos[:500] *= 0.02
+    h = p_native.knn_smooth(pos, 32)
+    d, _ = cKDTree(pos).query(pos, k=33)
+    np.testing.assert_allclose(h, 0.5 * d[:, -1], rtol=1e-5)
+    np.testing.assert_array_equal(h, r_native.knn_smooth(pos, 32))
+    # a runtime that failed to build reports False and builds nothing
+    monkeypatch.setattr(p_native, "_lib", None)
+    monkeypatch.setattr(p_native, "_build_failed", True)
+    assert p_native.available() is False
+
+
+def _is_inside_ipython(monkeypatch):
+    import builtins
+    assert p_util.is_inside_ipython() is r_util.is_inside_ipython() is False
+    monkeypatch.setattr(builtins, "__IPYTHON__", True, raising=False)
+    assert p_util.is_inside_ipython() is r_util.is_inside_ipython() is True
+
+
+HELPERS = ["camera_class", "clip_to_pixel", "kernel_image_64",
+           "kernel_image_32", "kernel_image_16", "kernel_image_8",
+           "norm_value_exact", "norm_value_lowrank", "native_available",
+           "is_inside_ipython"]
+
+
+@pytest.mark.parametrize("name", HELPERS)
+def test_helper_matches_reference(name, monkeypatch):
+    {"camera_class": _camera_class,
+     "clip_to_pixel": _clip_to_pixel,
+     "kernel_image_64": lambda: _kernel_image(64),
+     "kernel_image_32": lambda: _kernel_image(32),
+     "kernel_image_16": lambda: _kernel_image(16),
+     "kernel_image_8": lambda: _kernel_image(8),
+     "norm_value_exact": lambda: _norm_value("exact"),
+     "norm_value_lowrank": lambda: _norm_value("lowrank"),
+     "native_available": lambda: _native_available(monkeypatch),
+     "is_inside_ipython": lambda: _is_inside_ipython(monkeypatch)}[name]()

@@ -1,7 +1,8 @@
 """The PyTorch port imports and renders every mode (univariate EXPORT
 through the sorted block path and the presort, CHANGE and REFINE frames,
 surface EXPORT and CHANGE frames, rgb, rgb-hdr, bivariate, the depth pick
-and periodic tiling), renders over a two-shard CPU mesh (the block path,
+and periodic tiling; an EXPORT frame with the Catmull-Rom pyramid
+collapse), renders over a two-shard CPU mesh (the block path,
 a CHANGE frame of the mesh's columns, the surface), presorts on the device
 and
 renders a device loader's snapshot from a decimation-mip tier, computes
@@ -136,6 +137,14 @@ assert len(frames) == 3 and frames[0].shape == (32, 48, 3)
 rec.load_timestream(os.path.join(out_dir, "reference_session.pkl"))
 frames = list(rec._replay(fps=10, resolution=(48, 32), smooth=False))
 assert len(frames) == 5 and all(np.isfinite(f).all() for f in frames)
+vis._sph.render(DrawReason.EXPORT)
+spline = vis._sph.get_image()
+config.PYRAMID_COLLAPSE_FILTER = "catmull"
+vis._sph.render(DrawReason.EXPORT)
+catmull = vis._sph.get_image()
+config.PYRAMID_COLLAPSE_FILTER = "spline"
+assert catmull.shape == spline.shape and np.isfinite(catmull).all()
+assert catmull.sum() > 0 and not np.array_equal(catmull, spline)
 from topsy_tpu_torch import performance
 with performance.trace(os.path.join(out_dir, "trace")) as t:
     vis._sph.render(DrawReason.EXPORT)

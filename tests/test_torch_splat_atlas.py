@@ -18,10 +18,12 @@ import jax
 import jax.numpy as jnp
 
 from topsy_tpu import camera
+from topsy_tpu import config as r_config
 from topsy_tpu.loaders import TestDataLoader
 from topsy_tpu.ops import morton
 from topsy_tpu.ops import splat_atlas as r_atlas
 
+from topsy_tpu_torch import config as p_config
 from topsy_tpu_torch import convert
 from topsy_tpu_torch.ops import splat as p_splat
 from topsy_tpu_torch.ops import splat_atlas as p_atlas
@@ -62,10 +64,12 @@ _REF_FNS = {}
 
 
 def _ref(ref_in, matrix, mask=None, **static):
-    """The reference, jitted once per static configuration (the view
-    matrix is traced, so views share one compile)."""
+    """The reference, jitted once per static configuration and collapse
+    filter, which it reads when it traces (the view matrix is traced, so
+    views share one compile)."""
     fields, values_cm, gb = ref_in
-    key = tuple(sorted(static.items())) + (mask is None,)
+    key = tuple(sorted(static.items())) + (mask is None,
+                                           r_config.PYRAMID_COLLAPSE_FILTER)
     run = _REF_FNS.get(key)
     if run is None:
         def run(f, v, m, k, msk):
@@ -103,6 +107,24 @@ def test_fields_match_reference(scene, rot_deg):
     _, _, _, st, ref_in = scene
     m = _matrix(rot_deg)
     _assert_cross_engine(*_port(st, m), *_ref(ref_in, m))
+
+
+@pytest.mark.parametrize("rot_deg", [0.0, 35.0])
+def test_catmull_collapse_matches_reference(scene, rot_deg, monkeypatch):
+    """config.PYRAMID_COLLAPSE_FILTER = "catmull" in both packages: the
+    port renders (it raised ValueError before) and matches the reference
+    under the same bounds; the image differs from the default 'spline'
+    collapse's, so the filter was applied."""
+    _, _, _, st, ref_in = scene
+    m = _matrix(rot_deg)
+    im_spline, _ = _port(st, m)
+    for cfg in (r_config, p_config):
+        monkeypatch.setattr(cfg, "PYRAMID_COLLAPSE_FILTER", "catmull")
+    im_p, d_p = _port(st, m)
+    _assert_cross_engine(im_p, d_p, *_ref(ref_in, m))
+    assert np.abs(im_p - im_spline).max() > 1e-4 * np.abs(im_p).max()
+    assert im_p[..., 0].sum() == pytest.approx(im_spline[..., 0].sum(),
+                                               rel=1e-3)
 
 
 def test_dropped_counts_match_under_a_small_spill_budget(scene):

@@ -229,9 +229,9 @@ class ColormapBase:
     def to_rgba(self, raw_image, mass_scale: float = 1.0) -> torch.Tensor:
         raise NotImplementedError
 
-    def sph_raw_output_to_content(self, image) -> np.ndarray:
-        """The logical content of a raw image (array or tensor), on the
-        host."""
+    def sph_raw_output_to_content(self, numpy_image) -> np.ndarray:
+        """The logical content of a raw image (array or tensor, under the
+        reference's parameter name), on the host."""
         raise NotImplementedError
 
     def autorange_vmin_vmax(self, vals):
@@ -279,12 +279,12 @@ class Colormap(ColormapBase):
             self._lut_for = key
         return self._lut
 
-    def sph_raw_output_to_content(self, image) -> np.ndarray:
-        numpy_image = torch.as_tensor(image).cpu().numpy()
+    def sph_raw_output_to_content(self, numpy_image) -> np.ndarray:
+        host = torch.as_tensor(numpy_image).cpu().numpy()
         if self._params["weighted_average"]:
             with np.errstate(invalid="ignore", divide="ignore"):
-                return numpy_image[..., 1] / numpy_image[..., 0]
-        return numpy_image[..., 0]
+                return host[..., 1] / host[..., 0]
+        return host[..., 0]
 
     def _effective_vmin_vmax(self, mass_scale: float):
         vmin, vmax = self._params["vmin"], self._params["vmax"]
@@ -411,8 +411,8 @@ class RGBColormap(Colormap):
                 parameters.pop("max_mag"))
         ColormapBase.update_parameters(self, parameters)
 
-    def sph_raw_output_to_content(self, image) -> np.ndarray:
-        return torch.as_tensor(image).cpu().numpy()[..., :3]
+    def sph_raw_output_to_content(self, numpy_image) -> np.ndarray:
+        return torch.as_tensor(numpy_image).cpu().numpy()[..., :3]
 
     def to_rgba(self, raw_image: torch.Tensor,
                 mass_scale: float = 1.0) -> torch.Tensor:
@@ -490,8 +490,8 @@ class BivariateColormap(Colormap):
         rgba[..., :3] = hsv_to_rgb(hsv)
         return rgba
 
-    def sph_raw_output_to_content(self, image) -> np.ndarray:
-        ret = torch.as_tensor(image).cpu().numpy().copy()
+    def sph_raw_output_to_content(self, numpy_image) -> np.ndarray:
+        ret = torch.as_tensor(numpy_image).cpu().numpy().copy()
         if self._params["weighted_average"]:
             with np.errstate(invalid="ignore", divide="ignore"):
                 ret[..., 1] /= ret[..., 0]

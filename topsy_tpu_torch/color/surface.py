@@ -38,9 +38,10 @@ class ColorAsSurfaceMap(Colormap):
     def accepts_parameters(cls, parameters: dict) -> bool:
         return parameters.get("type", None) == "surface"
 
-    def sph_raw_output_to_content(self, image) -> np.ndarray:
-        """The smoothed (value, depth) map, smoothed where ``image`` lies."""
-        return smooth_image(torch.as_tensor(image),
+    def sph_raw_output_to_content(self, numpy_image) -> np.ndarray:
+        """The smoothed (value, depth) map, smoothed on the device where
+        ``numpy_image`` (an array or a tensor) lies."""
+        return smooth_image(torch.as_tensor(numpy_image),
                             self._params.get("smoothing_scale", 0.01)
                             ).cpu().numpy()
 

@@ -20,11 +20,15 @@ STATUS_LINE_UPDATE_INTERVAL_RAPID = 0.05
 
 GLIDE_TIME = 0.3  # seconds after double click to reach destination
 
+COLORBAR_ASPECT_RATIO = 0.15
 COLORMAP_NUM_SAMPLES = 1000
 
 TEST_DATA_NUM_PARTICLES_DEFAULT = int(1e6)
 
 # ------------------------------------------------------------ particle LOD --
+MAX_PARTICLES_PER_BUFFER = 2**27
+# kept for API parity with the reference buffer splitting; nothing reads it.
+
 MAX_PARTICLES_PER_EXPORT_RENDERCALL = 2**25
 # EXPORT renders are chunked into calls of at most this many particles.
 
@@ -35,6 +39,8 @@ CELL_LAYOUT_FRACTIONAL_PADDING = 1e-5
 
 # fraction of the frame budget below which no new block is attempted
 FRAME_BUDGET_CUTOFF_FRACTION = 0.4
+
+JUPYTER_UI_LAG = 0.05
 
 PROJECTED_DENSITY_NAME = "Projected density"  # the controllers' density entry
 

@@ -75,6 +75,12 @@ def _load() -> ctypes.CDLL | None:
         return _lib
 
 
+def available() -> bool:
+    """Whether the g++-built runtime loads (building it on this first call
+    if its library is missing or older than its source)."""
+    return _load() is not None
+
+
 def cell_sort(positions: np.ndarray, box_min: float, box_max: float,
               nside: int):
     """(ordering, offsets, lengths) for cell-contiguous layout, or None to

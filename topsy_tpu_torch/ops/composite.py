@@ -1,14 +1,14 @@
 """2x pyramid upsampling for the atlas collapses, and the periodic
 lattice composite.
 
-Counterpart of ``_upsample2x_matrix``, ``upsample2x_kind_cm``,
-``upsample2x_zmax_cm``, ``_integer_shift``, ``shift_bilinear`` and
-``lattice_composite`` in ``topsy_tpu/ops/composite.py``.  The
-interpolation matrices are the
-reference's own (host numpy, cached); the two per-axis products run as
-float32 matmuls with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` is
-set False in ``topsy_tpu_torch/__init__.py``), as the reference runs them
-at float32 precision.
+Counterpart of every function of ``topsy_tpu/ops/composite.py``.  The
+interpolation matrices ('linear', 'catmull', 'spline') are the reference's
+own (host numpy, cached); the two per-axis products run as float32 matmuls
+with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` is set False in
+``topsy_tpu_torch/__init__.py``), as the reference runs them at float32
+precision.  ``upsample2x_*`` take channel-last (H, W, C) images and
+``upsample2x_*_cm`` channel-major (C, H, W) ones; the pyramid collapses
+call ``upsample2x_kind_cm`` with ``config.PYRAMID_COLLAPSE_FILTER``.
 """
 
 from __future__ import annotations
@@ -17,6 +17,32 @@ import functools
 
 import numpy as np
 import torch
+
+
+def upsample2x_linear(x: torch.Tensor) -> torch.Tensor:
+    """Exact 2x bilinear upsample over the two leading axes of (H, W, ...):
+    out[2k] = 0.75 in[k] + 0.25 in[k-1], out[2k+1] = 0.75 in[k] + 0.25
+    in[k+1], clamped at the edges, by shifts and weighted adds as the
+    reference computes it."""
+
+    def axis0(a):
+        lo = torch.cat([a[:1], a[:-1]], dim=0)
+        hi = torch.cat([a[1:], a[-1:]], dim=0)
+        even = 0.75 * a + 0.25 * lo
+        odd = 0.75 * a + 0.25 * hi
+        return torch.stack([even, odd], dim=1).reshape((-1,) + a.shape[1:])
+
+    x = axis0(x)
+    return axis0(x.transpose(0, 1)).transpose(0, 1)
+
+
+def _catmull_weight(t: float) -> float:
+    t = abs(t)
+    if t < 1.0:
+        return 1.5 * t**3 - 2.5 * t**2 + 1.0
+    if t < 2.0:
+        return -0.5 * t**3 + 2.5 * t**2 - 4.0 * t + 2.0
+    return 0.0
 
 
 def _bspline3(t: np.ndarray) -> np.ndarray:
@@ -28,13 +54,15 @@ def _bspline3(t: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def _upsample2x_matrix(n: int, kind: str = "spline") -> np.ndarray:
+def _upsample2x_matrix(n: int, kind: str = "linear") -> np.ndarray:
     """(n, 2n) interpolation matrix: y = x @ M upsamples the last axis with
     half-pixel-centre sampling and edge clamp, built as the reference builds
     it.  ``kind``: 'linear' (out[2k] = 0.75 in[k] + 0.25 in[k-1], out[2k+1]
-    = 0.75 in[k] + 0.25 in[k+1]; the surface collapse) or 'spline' (the
-    interpolating cubic spline, B-spline prefilter folded in; the configured
-    density collapse).  The 'catmull' filter is not ported."""
+    = 0.75 in[k] + 0.25 in[k+1]; the surface collapse), 'catmull' (4-tap
+    Catmull-Rom, third-order accurate) or 'spline' (the interpolating cubic
+    spline, B-spline prefilter folded in, fourth-order; the default density
+    collapse).  Any other name is the 'catmull' filter, as in the
+    reference.  Every kind preserves constants (interior rows sum to 2)."""
     m = np.zeros((n, 2 * n), dtype=np.float32)
     if kind == "linear":
         k = np.arange(n)
@@ -44,8 +72,12 @@ def _upsample2x_matrix(n: int, kind: str = "spline") -> np.ndarray:
         m[np.minimum(k + 1, n - 1), 2 * k + 1] += 0.25
         return m
     if kind != "spline":
-        raise ValueError(f"pyramid collapse filter {kind!r}: the port "
-                         "implements 'linear' and 'spline'")
+        for j in range(2 * n):
+            xc = j / 2.0 - 0.25  # coarse-grid coordinate of fine centre j
+            k0 = int(np.floor(xc))
+            for k in range(k0 - 1, k0 + 3):
+                m[min(max(k, 0), n - 1), j] += _catmull_weight(xc - k)
+        return m
     if n < 2:
         m[:, :] = 1.0
         return m
@@ -68,12 +100,37 @@ def _matrix_on(n: int, kind: str, device: str) -> torch.Tensor:
     return torch.as_tensor(_upsample2x_matrix(n, kind), device=device)
 
 
+def upsample2x_linear_cm(x: torch.Tensor) -> torch.Tensor:
+    """Exact 2x bilinear upsample over the two trailing axes of (C, H, W),
+    by the 'linear' matrix's products."""
+    return upsample2x_kind_cm(x, "linear")
+
+
+def upsample2x_kind(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """2x upsample over the two leading axes of (H, W, ...) with the given
+    reconstruction filter (``_upsample2x_matrix``)."""
+    H, W = x.shape[0], x.shape[1]
+    dev = str(x.device)
+    t = torch.einsum("hw...,hH->Hw...", x, _matrix_on(H, kind, dev))
+    return torch.einsum("Hw...,wW->HW...", t, _matrix_on(W, kind, dev))
+
+
+def upsample2x_catmull(x: torch.Tensor) -> torch.Tensor:
+    """2x Catmull-Rom upsample over the two leading axes of (H, W, C)."""
+    return upsample2x_kind(x, "catmull")
+
+
 def upsample2x_kind_cm(x: torch.Tensor, kind: str) -> torch.Tensor:
     """2x upsample over the two trailing axes of (C, H, W)."""
     C, H, W = x.shape
     dev = str(x.device)
     t = torch.einsum("chw,hH->cHw", x, _matrix_on(H, kind, dev))
     return torch.einsum("cHw,wW->cHW", t, _matrix_on(W, kind, dev))
+
+
+def upsample2x_catmull_cm(x: torch.Tensor) -> torch.Tensor:
+    """2x Catmull-Rom upsample over the two trailing axes of (C, H, W)."""
+    return upsample2x_kind_cm(x, "catmull")
 
 
 def upsample2x_zmax_cm(dv: torch.Tensor) -> torch.Tensor:

@@ -67,6 +67,17 @@ def kernel_value(q: np.ndarray) -> np.ndarray:
     return np.interp(np.asarray(q, dtype=np.float64), qs, ks, right=0.0)
 
 
+def kernel_image(n_samples: int = 64) -> np.ndarray:
+    """Kernel sampled on an n x n grid over [-2, 2]^2 at pixel centres with
+    mass-conserving normalization, matching the reference's texture build
+    (reference: src/topsy/sph.py:372-394).  Used by tests for parity."""
+    centres = np.linspace(-2 + 2.0 / n_samples, 2 - 2.0 / n_samples, n_samples)
+    x, y = np.meshgrid(centres, centres)
+    im = kernel_value(np.sqrt(x**2 + y**2))
+    im *= (n_samples / 4.0) ** 2 / im.sum()
+    return im
+
+
 @dataclass(frozen=True)
 class LowRankKernel:
     """Separable eigen-approximation of the projected kernel.
@@ -233,3 +244,10 @@ def norm_table(mode: str = "exact",
     sums /= n_phase**2
     c = hs**2 / np.maximum(sums, 1e-30)
     return hs.astype(np.float32), c.astype(np.float32)
+
+
+def norm_value(h_px: np.ndarray, mode: str = "exact") -> np.ndarray:
+    """Interpolated c(h) from the normalization table (numpy helper)."""
+    hs, cs = norm_table(mode)
+    logh = np.log(np.clip(h_px, hs[0], hs[-1]))
+    return np.interp(logh, np.log(hs), cs)

@@ -53,13 +53,15 @@ class MeshSplatterMixin:
     change) and the mesh's column progression."""
 
     def __init__(self, store: ParticleStore, render_progression,
-                 resolution: int, mesh, backend: str | None = None):
+                 resolution: int, mesh, wrapping: bool = False,
+                 backend: str | None = None, share_render_progression=None):
         if not same_device(mesh.first_device, store.device):
             raise ValueError(f"the mesh's first shard is on "
                              f"{mesh.first_device}, the store on "
                              f"{store.device}: they must agree")
         super().__init__(store, render_progression, resolution,
-                         backend=backend)
+                         wrapping=wrapping, backend=backend,
+                         share_render_progression=share_render_progression)
         self._mesh = mesh
         self._splatter = None
         self._splatter_version = None
@@ -176,8 +178,9 @@ class DistributedSPHRenderer(MeshSplatterMixin, SPHRenderer):
         r = getattr(self, "_depth_renderer", None)
         if r is None:
             r = DistributedDepthSPHRenderer(
-                self._store, copy.copy(self._render_progression),
-                self._resolution, self._mesh, backend=self._backend)
+                self._store, None, self._resolution, self._mesh,
+                wrapping=self._wrapping, backend=self._backend,
+                share_render_progression=copy.copy(self._render_progression))
             self._depth_renderer = r
         r._render_progression = copy.copy(self._render_progression)
         r.rotation_matrix = self.rotation_matrix
@@ -236,7 +239,8 @@ class DistributedPeriodicSPHRenderer(PeriodicSPHRenderer,
     def __init__(self, store: ParticleStore, render_progression,
                  resolution: int, mesh, periodicity_scale: float,
                  backend: str | None = None):
-        DistributedSPHRenderer.__init__(self, store, render_progression,
-                                        resolution, mesh, backend=backend)
-        self._periodicity_scale = periodicity_scale
-        self._display_image = None
+        # PeriodicSPHRenderer.__init__ hands ``mesh`` on through its
+        # keywords to MeshSplatterMixin, the next class of the MRO
+        super().__init__(store, render_progression, resolution,
+                         periodicity_scale=periodicity_scale,
+                         backend=backend, mesh=mesh)

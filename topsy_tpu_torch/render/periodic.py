@@ -4,7 +4,12 @@ Counterpart of ``PeriodicSPHRenderer`` in ``topsy_tpu/render/periodic.py``:
 each frame renders the base panel once, then composites a (2*2+1)^3 lattice
 of rotated box offsets as weighted bilinear-shifted copies
 (``ops.composite.lattice_composite``); the weight fades from 1 to 0 for
-|z offset| in [0.5, 1] box lengths.
+|z offset| in [0.5, 1] box lengths.  The reference's own ``render`` and
+``_get_image_unscaled`` are not restated: ``SPHRenderer.render`` already
+returns on a PRESENTATION_CHANGE and ends every frame with
+``_postprocess_frame`` (the composite), and the inherited
+``_get_image_unscaled`` reads ``get_output_image``, which is the composite
+here.
 """
 
 from __future__ import annotations
@@ -21,9 +26,10 @@ class PeriodicSPHRenderer(SPHRenderer):
 
     def __init__(self, store, render_progression, resolution: int,
                  periodicity_scale: float | None = None,
-                 backend: str | None = None):
+                 backend: str | None = None, **kwargs):
+        kwargs.setdefault("wrapping", True)
         super().__init__(store, render_progression, resolution,
-                         backend=backend)
+                         backend=backend, **kwargs)
         self._periodicity_scale = periodicity_scale
         self._display_image = None
 

@@ -141,13 +141,22 @@ class SPHRenderer:
     _depth_channel = False
 
     def __init__(self, store: ParticleStore, render_progression,
-                 resolution: int, backend: str | None = None):
+                 resolution: int, wrapping: bool = False,
+                 backend: str | None = None,
+                 share_render_progression=None):
+        """``wrapping`` is kept and handed to the depth renderer, as in the
+        reference; ``share_render_progression``, where given, is the
+        progression this renderer uses instead of ``render_progression``
+        (the depth renderer runs on a copy of its owner's)."""
         self._store = store
         self._resolution = resolution
+        self._wrapping = wrapping
         if backend not in (None, "atlas", "scatter"):
             raise ValueError(f"unknown splat backend {backend!r}")
         self._backend = backend or "atlas"
-        self._render_progression = render_progression
+        self._render_progression = (share_render_progression
+                                    if share_render_progression is not None
+                                    else render_progression)
         self._export_renders = 0
         self._render_timer = TimeDeviceOperation(
             config.GPU_TIMING_SMOOTH_WINDOW, device=store.device)
@@ -170,6 +179,10 @@ class SPHRenderer:
         self._fields_masks = {}
         #: (col0, ncols) of each column launch of the last interactive frame
         self.last_column_ranges: list = []
+
+    @property
+    def resolution(self) -> int:
+        return self._resolution
 
     @property
     def render_progression(self):
@@ -228,9 +241,11 @@ class SPHRenderer:
         given a copy of this renderer's progression and its view."""
         r = getattr(self, "_depth_renderer", None)
         if r is None:
-            r = DepthSPHRenderer(self._store,
-                                 copy.copy(self._render_progression),
-                                 self._resolution, backend=self._backend)
+            r = DepthSPHRenderer(self._store, None, self._resolution,
+                                 wrapping=self._wrapping,
+                                 backend=self._backend,
+                                 share_render_progression=copy.copy(
+                                     self._render_progression))
             self._depth_renderer = r
         r._render_progression = copy.copy(self._render_progression)
         r.rotation_matrix = self.rotation_matrix

@@ -151,9 +151,11 @@ class SurfaceSPHRenderer(SPHRenderer):
     _rho_percentiles_num_samples = 101
 
     def __init__(self, store: ParticleStore, render_progression,
-                 resolution: int, backend: str | None = None):
+                 resolution: int, wrapping: bool = False,
+                 backend: str | None = None, share_render_progression=None):
         super().__init__(store, render_progression, resolution,
-                         backend=backend)
+                         wrapping=wrapping, backend=backend,
+                         share_render_progression=share_render_progression)
         loader = store._loader
         self._percentile_to_den_cut = zsplat.density_cut_percentiles(
             loader.get_mass(), loader.get_smooth(),

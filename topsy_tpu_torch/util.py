@@ -5,8 +5,8 @@ Counterpart of ``topsy_tpu/util.py``.  On a CUDA device the barrier is
 accumulated figure is device time; on the CPU the barrier is a no-op and
 blocks are timed on the host clock (PyTorch's CPU ops run synchronously).
 ``FrameClock`` times a barrier-free interactive frame from its first launch
-to the end of its presentation readback.  ``is_jupyter`` is a copy of the
-original's.
+to the end of its presentation readback.  ``is_inside_ipython`` and
+``is_jupyter`` are copies of the original's.
 """
 
 from __future__ import annotations
@@ -146,6 +146,14 @@ class FrameClock:
         if self._cuda:
             return self._start.elapsed_time(self._end) / 1e3
         return self._end - self._start
+
+
+def is_inside_ipython() -> bool:
+    try:
+        __IPYTHON__  # type: ignore[name-defined]  # noqa: B018
+        return True
+    except NameError:
+        return False
 
 
 def is_jupyter() -> bool:

@@ -84,6 +84,7 @@ def resolve_device(device) -> torch.device:
 
 
 class VisualizerBase:
+    colorbar_aspect_ratio = config.COLORBAR_ASPECT_RATIO
     show_status = True
 
     def __init__(self, data_loader_class=TestDataLoader, data_loader_args=(),
