@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--mesh-only]
 
-Builds the port's hand-written kernels from this checkout (the Triton feed
+Builds the port's hand-written kernels from this checkout (the CUDA feed
 kernel K1, the CUDA deposit kernel K2 and the CUDA z-buffer kernel K3, into
 build/torch_kernels/; the host presort's native library into
 build/torch_native/), builds the 2^24-particle synthetic snapshot at
@@ -14,7 +14,9 @@ tier) beside the host presort, checks the layout's invariants on the card
 and the mip tier as exactly its parent's first columns, and fails if the
 scene took the host fallback.  It holds K1 and K2 against their plain
 PyTorch versions on the card at the shapes the EXPORT path gives them
-(every piece of the renderer's piece loop), drives the univariate EXPORT
+(every piece of the renderer's piece loop), then K1 alone (phase K1o) at
+G = 189 (its lane-by-lane path) and on lanes with NaN, infinite, zero and
+negative h and NaN or infinite positions, drives the univariate EXPORT
 path (warm-up and timed frames, the SPH image and the presentation image)
 and checks the image against the port's scatter ground truth.  Phase D
 drives bench.py's own path, ``TestDataDeviceLoader`` through a second
@@ -103,8 +105,11 @@ one CHANGE frame (the fps of the frame clock's CUDA events).
 machine.  It prints:
 
 * the card's name and power limit (nvidia-smi);
-* ptxas' registers, stack and spills for every K2 and K3 kernel
+* ptxas' registers, stack and spills for every K1, K2 and K3 kernel
   instantiation;
+* per timed K1 call, beside its time back to back by CUDA events, the
+  kernel's own time (torch.profiler's kernel durations) and the
+  wrapper's host time per call (``k1_costs``);
 * per K2 call its groups by (kind, size class), the atlas entries it
   deposits, how many are nonzero and how many float4 reductions carry
   them, its bound (bytes, bf16 and float32 operations), and for the main
@@ -430,8 +435,9 @@ def k2_bound(kw):
 
 def ptxas_resources(log_text: str):
     """(kernel, 'registers, shared memory, spills') per function of an
-    ``nvcc -Xptxas -v`` log; K2's class kernels as <C, rows, columns>, K3's
-    as <panel rows, panel columns>."""
+    ``nvcc -Xptxas -v`` log; K1's variants as <C_IN, DEPTH, RANGED,
+    HAS_MASK>, K2's class kernels as <C, rows, columns>, K3's as <panel
+    rows, panel columns>."""
     import re
     out, name = [], None
     for line in log_text.splitlines():
@@ -439,9 +445,13 @@ def ptxas_resources(log_text: str):
         if m:
             t = re.search(r"deposit_class_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                           m.group(1))
+            f = re.search(r"feed_kernelILi(\d)ELb([01])ELb([01])ELb([01])E",
+                          m.group(1))
             z = re.search(r"zdeposit_class_kernelILi(\d+)ELi(\d+)E",
                           m.group(1))
-            name = (f"deposit_class_kernel<C={t[1]}, rows={t[2]}, "
+            name = (f"feed_kernel<C_IN={f[1]}, DEPTH={f[2]}, "
+                    f"RANGED={f[3]}, HAS_MASK={f[4]}>" if f else
+                    f"deposit_class_kernel<C={t[1]}, rows={t[2]}, "
                     f"cols={t[3]}>" if t else
                     f"zdeposit_class_kernel<panel rows={z[1]}, cols={z[2]}>"
                     if z else
@@ -651,22 +661,91 @@ def k3_census(kw, keys):
     return out
 
 
-def compare_feed(label, out_k, out_p) -> float:
-    """K1's outputs against its plain version's: finite, f32 planes within
-    rtol 1e-6, integers equal.  Returns the largest f32 difference."""
+def compare_feed(label, out_k, out_p, finite=True) -> float:
+    """K1's outputs against its plain version's: finite (or, with
+    ``finite=False``, NaN exactly where the plain version has NaN), f32
+    planes within rtol 1e-6, integers equal.  Returns the largest f32
+    difference."""
     import torch
     err = 0.0
     for name, a, b in zip(("ay", "ax", "ih", "cfit", "cspill"), out_k[:5],
                           out_p[:5]):
-        check(torch.isfinite(a).all(), f"K1 {label} {name} not finite")
-        check(torch.allclose(a, b, rtol=1e-6, atol=0.0),
+        if finite:
+            check(torch.isfinite(a).all(), f"K1 {label} {name} not finite")
+        check(torch.allclose(a, b, rtol=1e-6, atol=0.0, equal_nan=not finite),
               f"K1 {label} {name} differs from the plain version beyond "
-              f"rtol 1e-6: max {(a - b).abs().max().item()}")
-        err = max(err, (a - b).abs().max().item())
+              f"rtol 1e-6: max {(a - b).abs().nan_to_num().max().item()}")
+        err = max(err, (a - b).abs().nan_to_num().max().item())
     for name, a, b in zip(("w0", "c0", "ce", "flags", "nspill"), out_k[5:],
                           out_p[5:]):
         n_diff = int((a != b).sum().item())
         check(n_diff == 0, f"K1 {label} {name}: {n_diff} groups differ")
+    return err
+
+
+def phase_feed_odd(vis) -> float:
+    """Phase K1o: K1 against its plain version where it takes its
+    lane-by-lane path and where lanes hold odd values.  The main layout's
+    columns [64, 253) (G = 189, not a multiple of 4) as the interactive
+    column launch cuts them, over 1,024 groups around the middle of the
+    groups that EXPORT piece 0 finds active; then the same groups with 40
+    lanes (inside those columns) of 20 active groups set, case by case, to h NaN, +inf, 0 or negative and to
+    NaN or infinite positions, at G = 512 and on the 189 columns.  Integers equal, f32 planes to rtol 1e-6, NaN where
+    the plain version has NaN.  Returns the largest difference."""
+    import numpy as np
+    import torch
+    from topsy_tpu_torch.ops import splat_atlas, splat_feed
+    from topsy_tpu_torch.render.sph import column_launches
+    sph, store = vis._sph, vis.store
+    matrix = sph._matrix().astype(np.float32)
+    scale = np.float32(sph.scale)
+    fields, vals, gb, msk = tier_arrays(store, sph, store.main_tier)
+    n_groups, G = fields[0].shape
+    p0 = sph.pieces()[0]
+    fargs, fkw = feed_args(vis, p0)
+    active = torch.nonzero(splat_feed.splat_feed_cuda(*fargs, **fkw)[8] // 4
+                           > 0).flatten().cpu().numpy() + (p0 or (0,))[0]
+    check(len(active) >= 20, "K1o: EXPORT piece 0 has under 20 active groups")
+    n = min(1024, n_groups)
+    g0 = int(np.clip(active[len(active) // 2] - n // 2, 0, n_groups - n))
+    live = active[(active >= g0) & (active < g0 + n)]
+    rng = np.random.RandomState(13)
+    dev = fields[0].device
+    groups = torch.as_tensor(np.repeat(rng.choice(live, 20, replace=False), 2),
+                             device=dev)
+    lanes = torch.as_tensor(rng.randint(64, 64 + 189, 40), device=dev)
+    err = 0.0
+    cases = {"plain": None, "h_nan": float("nan"), "h_inf": float("inf"),
+             "h_zero": 0.0, "h_negative": -0.5, "pos_nan": float("nan"),
+             "pos_inf": float("inf")}
+    for case, value in cases.items():
+        f = list(fields)
+        if value is not None:
+            k = 3 if case.startswith("h_") else 0
+            f[k] = f[k].clone()
+            f[k][groups, lanes] = value
+            if case == "pos_nan":
+                f[1] = f[1].clone()
+                f[1][groups[::2], lanes[::2]] = value
+        for width in (G, 189):
+            src = (tuple(f), vals, gb, msk) if width == G else \
+                column_launches(tuple(f), vals, gb, msk, 64, width)[:4]
+            fargs, fkw = splat_atlas.feed_call(
+                *src[:2], matrix, RESOLUTION, scale, src[2], mask=src[3],
+                piece=(g0, n), bucket_thresh=sph._giant_bucket)
+            label = f"K1o {case} G {width}"
+            out_k = splat_feed.splat_feed_cuda(*fargs, **fkw)
+            out_p = splat_feed.splat_feed_plain(*fargs, **fkw)
+            e = compare_feed(label, out_k, out_p, finite=case == "plain")
+            err = max(err, e)
+            nan_groups = int(torch.isnan(out_p[2]).any(dim=1).sum().item())
+            msg = (f"phase {label}: ok; {fkw['piece_groups']} groups, "
+                   f"max abs diff {e:.3e}; groups with a NaN ih "
+                   f"{nan_groups}; flags {torch.bincount(out_k[8].long()).tolist()}")
+            if case == "plain" and width == 189:
+                time_k1("w189_1024_groups", fargs, fkw, width)
+                msg += f"; {k1_note('w189_1024_groups')}"
+            log(msg)
     return err
 
 
@@ -826,6 +905,98 @@ def trace_frame(fn, path: str) -> dict:
         + (json.dumps(out) if spans else
            "the profiler shows no device time"))
     return out
+
+
+#: K1's timed calls, {call: {"ms", "device_ms", "host_us", "bound_ms",
+#: "groups", "G", "device_by"}}: back to back by CUDA events, the kernel
+#: alone (by the profiler or by events), the wrapper's host time, the bound
+K1_CALLS: dict = {}
+
+
+def time_k1(key, fargs, fkw, G, reps=5, plain_reps=2):
+    """(ms, plain ms, bound ms) of one K1 call, timed back to back by CUDA
+    events beside its plain version and bound; its device-only time and
+    the wrapper's host time (``k1_costs``) go into ``K1_CALLS[key]``."""
+    from topsy_tpu_torch.ops import splat_feed
+
+    def fn():
+        splat_feed.splat_feed_cuda(*fargs, **fkw)
+    ms = timed_ms(fn, reps)
+    plain = timed_ms(lambda: splat_feed.splat_feed_plain(*fargs, **fkw),
+                     plain_reps)
+    b = k1_bound(fkw, G)[0]
+    device_ms, host_us, source = k1_costs(fn)
+    K1_CALLS[key] = {"ms": ms, "device_ms": device_ms, "host_us": host_us,
+                     "bound_ms": b, "groups": fkw["piece_groups"], "G": G,
+                     "device_by": source}
+    return ms, plain, b
+
+
+def k1_note(key) -> str:
+    """The device-only time and host time of a ``time_k1`` call."""
+    c = K1_CALLS[key]
+    return (f"kernel alone {c['device_ms']:.4f} ms by {c['device_by']} "
+            f"({c['bound_ms'] / c['device_ms']:.1%} of bound), wrapper host "
+            f"{c['host_us']:.1f} us")
+
+
+def queued_ms(fn, calls: int = 20) -> float:
+    """Mean ms of one call of ``fn`` by CUDA events around it alone,
+    enqueued behind a busy wait on the card, so that the events time the
+    card's work and not the host's enqueue."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(calls):
+        torch.cuda._sleep(1_000_000)        # ~0.5 ms of the card busy
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / calls
+
+
+def k1_costs(fn, calls: int = 20):
+    """(device ms, host us, device source) of one call of the K1 wrapper
+    ``fn``: the kernel's own duration on the card (the mean of
+    torch.profiler's kernel durations over ``calls`` calls, source
+    "profiler"; the trace may miss launches of a ctypes library, the
+    first few of a profile or, late in a long process, all of them: then
+    ``queued_ms``, source "events"; fails if the trace shows another
+    kernel or more than one a call) and the host time of the wrapper
+    (``perf_counter`` around ``calls`` calls enqueued onto an idle card,
+    per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    names = {e.name for e in kernels}
+    check(len(kernels) <= calls and len(names) <= 1,
+          f"the trace of {calls} K1 calls shows {len(kernels)} kernels: "
+          f"{sorted(names)}")
+    if kernels:
+        source = "profiler"
+        device_ms = (sum(e.time_range.elapsed_us() for e in kernels)
+                     / len(kernels) / 1e3)
+    else:
+        source, device_ms = "events", queued_ms(fn, calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return device_ms, host_us, source
 
 
 def cuda_ms(fn):
@@ -1168,23 +1339,18 @@ def phase_interactive(vis):
             fargs, fkw = splat_atlas.feed_call(
                 sliced, vals, matrix, RESOLUTION, scale, gb, mask=msk,
                 piece=piece, bucket_thresh=sph._giant_bucket)
-            out_k = splat_feed.splat_feed_triton(*fargs, **fkw)
+            out_k = splat_feed.splat_feed_cuda(*fargs, **fkw)
             feed_err = max(feed_err, compare_feed(
                 label, out_k, splat_feed.splat_feed_plain(*fargs, **fkw)))
             main_kw, t2_kw, t3_kw, dropped = splat_atlas.deposit_calls(
                 out_k, C=2, G=width, atlas_rows=atlas_rows,
                 atlas_cols=atlas_cols, **kw)
             drops.append(int(dropped.item()))
-            feed_t[key] = (
-                timed_ms(lambda: splat_feed.splat_feed_triton(*fargs, **fkw),
-                         5),
-                timed_ms(lambda: splat_feed.splat_feed_plain(*fargs, **fkw),
-                         2),
-                k1_bound(fkw, width)[0])
+            feed_t[key] = time_k1(f"interactive_{key}", fargs, fkw, width)
             kernels_ms += feed_t[key][0]
             timing = (f"K1 {feed_t[key][0]:.3f} ms (plain "
                       f"{feed_t[key][1]:.3f} ms, bound {feed_t[key][2]:.4f} "
-                      "ms)")
+                      f"ms; {k1_note(f'interactive_{key}')})")
             for shape, dkw in (("main", main_kw), ("tier2", t2_kw),
                                ("tier3", t3_kw)):
                 err, ref_max, active = compare_k2(f"{label} {shape}", dkw)
@@ -1410,7 +1576,7 @@ def phase_catmull(vis, export_image, card):
         # ---- C1: K1 and K2 on piece 0, exactly as phases 4-5 ---------------
         piece = sph.pieces()[0]
         fargs, fkw = feed_args(vis, piece)
-        out_k = splat_feed.splat_feed_triton(*fargs, **fkw)
+        out_k = splat_feed.splat_feed_cuda(*fargs, **fkw)
         feed_err = compare_feed(f"C piece {piece}", out_k,
                                 splat_feed.splat_feed_plain(*fargs, **fkw))
         calls, _ = k2_calls(out_k, G, atlas_rows, atlas_cols)
@@ -1545,7 +1711,7 @@ def held_calls(tag, vis, sph, pieces, timed, times, column=None,
                 np.float32(sph.scale), gb, mask=msk,
                 depth_channel=sph._depth_channel, piece=piece,
                 bucket_thresh=sph._giant_bucket)
-        out_k = splat_feed.splat_feed_triton(*fargs, **fkw)
+        out_k = splat_feed.splat_feed_cuda(*fargs, **fkw)
         feed_err = max(feed_err, compare_feed(
             label, out_k, splat_feed.splat_feed_plain(*fargs, **fkw)))
         main_kw, t2_kw, t3_kw, dropped = splat_atlas.deposit_calls(
@@ -1554,14 +1720,10 @@ def held_calls(tag, vis, sph, pieces, timed, times, column=None,
         msg = (f"phase {label}: K1 (C_in {fkw['C_in']}, depth "
                f"{int(fkw['depth_channel'])}) bit-exact on integers")
         if i == 0 and timed:
-            t = times[f"{tag}_K1"] = (
-                timed_ms(lambda: splat_feed.splat_feed_triton(*fargs, **fkw),
-                         5),
-                timed_ms(lambda: splat_feed.splat_feed_plain(*fargs, **fkw),
-                         2),
-                k1_bound(fkw, G)[0])
+            t = times[f"{tag}_K1"] = time_k1(tag.replace(" ", "_"), fargs,
+                                             fkw, G)
             msg += (f" {t[0]:.3f} ms (plain {t[1]:.3f} ms, bound {t[2]:.4f} "
-                    "ms)")
+                    f"ms; {k1_note(tag.replace(' ', '_'))})")
         for shape, dkw in (("main", main_kw), ("tier2", t2_kw),
                            ("tier3", t3_kw)):
             err, ref_max, active = compare_k2(f"{label} {shape}", dkw)
@@ -2442,19 +2604,17 @@ def hold_k1_calls(tag, calls):
     from topsy_tpu_torch.ops import splat_feed
     err, t = 0.0, None
     for i, (args, kw) in enumerate(calls):
-        out_k = splat_feed.splat_feed_triton(*args, **kw)
+        out_k = splat_feed.splat_feed_cuda(*args, **kw)
         err = max(err, compare_feed(f"{tag} call {i}", out_k,
                                     splat_feed.splat_feed_plain(*args, **kw)))
         msg = (f"phase {tag} K1 call {i}: groups {kw['piece_groups']} of "
                f"{args[0][0].shape[1]} (C_in {kw['C_in']}, depth "
                f"{int(kw['depth_channel'])}), bit-exact on integers")
         if i == 0:
-            t = (timed_ms(lambda: splat_feed.splat_feed_triton(*args, **kw),
-                          5),
-                 timed_ms(lambda: splat_feed.splat_feed_plain(*args, **kw),
-                          2),
-                 k1_bound(kw, args[0][0].shape[1])[0])
-            msg += f"; {t[0]:.3f} ms (plain {t[1]:.3f} ms, bound {t[2]:.4f} ms)"
+            key = tag.replace(" ", "_")
+            t = time_k1(key, args, kw, args[0][0].shape[1])
+            msg += (f"; {t[0]:.3f} ms (plain {t[1]:.3f} ms, bound {t[2]:.4f} "
+                    f"ms; {k1_note(key)})")
         log(msg)
     return err, t
 
@@ -2881,7 +3041,7 @@ def _phase_mesh(vis, export_image, truth_density, view):
         images_agree(f"G3 mesh depth renderer channel {c} (EXPORT) against "
                      "the single device", dr8[..., c:c + 1], dr1[..., c:c + 1],
                      1e-3, 0.9999)
-    mvis.get_depth_image()     # Triton specializes K1 to the tier's shape
+    mvis.get_depth_image()     # the depth renderer's first frame
     reset_counts()
     pick_ms, _, pick = cuda_ms(lambda: mvis.get_depth_image())
     launches["mesh_pick"] = read_counts("mesh pick", ("splat_feed",
@@ -3384,23 +3544,15 @@ def main() -> int:
 
     # ---- phase 2: build the kernels from this checkout ---------------------
     t0 = time.perf_counter()
-    for name in ("splat_accum", "zsplat_accum"):
+    sources = ("splat_feed", "splat_accum", "zsplat_accum")
+    for name in sources:
         # built from this checkout's sources, never an earlier build's
         (cuda_build.BUILD_DIR / f"lib{name}.so").unlink(missing_ok=True)
-    cuda_build.build(["splat_accum", "zsplat_accum"])     # nvcc in parallel
-    # compile K1 on a two-group input
-    tiny = torch.zeros((2, 512), device=dev)
-    splat_feed.splat_feed_triton(
-        (tiny, tiny, tiny, tiny), torch.zeros((2, 2, 512), device=dev),
-        torch.ones((2, 8), device=dev), np.zeros(16, np.float32),
-        np.zeros(4, np.int32), C_in=2, depth_channel=False,
-        resolution=RESOLUTION, atlas_rows=1024, atlas_cols=1152,
-        window_rows=96, band=8, col_pad=16.0, foot=8.0, piece_groups=2,
-        ranged=False, has_mask=False, sentinel_ay=1000.0)
-    torch.cuda.synchronize()
-    log(f"phase build: {time.perf_counter() - t0:.2f} s "
-        "(nvcc for csrc/splat_accum.cu and csrc/zsplat_accum.cu in "
-        "parallel, then Triton JIT)")
+    cuda_build.build(list(sources))     # one nvcc per source, in parallel
+    log(f"phase build: {time.perf_counter() - t0:.2f} s (nvcc for "
+        f"{', '.join(f'csrc/{n}.cu' for n in sources)} in parallel)")
+    for name, res in ptxas_resources(cuda_build.build_logs["splat_feed"]):
+        log(f"ptxas K1 {name}: {res}")
     for name, res in ptxas_resources(cuda_build.build_logs["splat_accum"]):
         log(f"ptxas K2 {name}: {res}")
     for name, res in ptxas_resources(cuda_build.build_logs["zsplat_accum"]):
@@ -3441,22 +3593,19 @@ def main() -> int:
     for i, piece in enumerate(pieces):
         # K1, exactly as the renderer feeds this piece
         fargs, fkw = feed_args(vis, piece)
-        out_k = splat_feed.splat_feed_triton(*fargs, **fkw)
+        out_k = splat_feed.splat_feed_cuda(*fargs, **fkw)
         err = compare_feed(f"piece {piece}", out_k,
                            splat_feed.splat_feed_plain(*fargs, **fkw))
         feed_err = max(feed_err, err)
+        t_ms, t_plain, _ = time_k1(f"export_piece{i}", fargs, fkw, G, 10, 3)
         if i == 0:
-            feed_ms = timed_ms(
-                lambda: splat_feed.splat_feed_triton(*fargs, **fkw), 10)
-            feed_plain_ms = timed_ms(
-                lambda: splat_feed.splat_feed_plain(*fargs, **fkw), 3)
+            feed_ms, feed_plain_ms = t_ms, t_plain
             feed_bound = k1_bound(fkw, G)
         kinds = torch.bincount((out_k[8] // 4).long(), minlength=5).tolist()
         log(f"phase K1 piece {piece}: ok; max abs diff {err:.3e}; groups by "
             f"kind [inactive, tiny, poly, mixed, masked] = {kinds}; spilled "
-            f"particles {int(out_k[9].sum().item())}"
-            + (f"; {feed_ms:.3f} ms (plain {feed_plain_ms:.3f} ms)"
-               if i == 0 else ""))
+            f"particles {int(out_k[9].sum().item())}; {t_ms:.3f} ms (plain "
+            f"{t_plain:.3f} ms; {k1_note(f'export_piece{i}')})")
 
         # K2 in the three call shapes that follow this feed
         calls, dropped = k2_calls(out_k, G, atlas_rows, atlas_cols)
@@ -3492,6 +3641,9 @@ def main() -> int:
                         f"{run_summary(lengths)}")
         log(f"piece {piece} dropped {int(dropped.item())}")
         del out_k
+
+    # ---- phase K1o: K1 at G = 189 and on odd lanes ------------------------
+    feed_err = max(feed_err, phase_feed_odd(vis))
 
     # ---- phase 6: the EXPORT path ------------------------------------------
     reset_counts()
@@ -3962,8 +4114,8 @@ def main() -> int:
                 for i, part in enumerate(("ms", "plain_ms", "bound_ms"))}
 
     kernels = [
-        {"name": "splat_feed", "route": "triton",
-         "source": "topsy_tpu_torch/ops/splat_feed.py",
+        {"name": "splat_feed", "route": "cuda",
+         "source": "topsy_tpu_torch/csrc/splat_feed.cu",
          "replaces": "topsy_tpu/ops/splat_feed.py:207",
          "launches": sum(by_path("splat_feed").values()),
          "launches_by_path": by_path("splat_feed"),
@@ -3971,6 +4123,9 @@ def main() -> int:
          "ms": feed_ms, "plain_ms": feed_plain_ms,
          "bound_ms": feed_bound[0], "bound_by": feed_bound[1],
          "library_ms": None,
+         "device_ms": K1_CALLS["export_piece0"]["device_ms"],
+         "host_us": K1_CALLS["export_piece0"]["host_us"],
+         "by_call": K1_CALLS,
          **interactive_times(isummary["feed_t"]), **mode_times("K1")},
         {"name": "accumulate_groups", "route": "cuda",
          "source": "topsy_tpu_torch/csrc/splat_accum.cu",

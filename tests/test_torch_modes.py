@@ -572,7 +572,7 @@ def test_feed_kernel_matches_plain_on_card(buffer, depth):
                                          np.float32(sph.scale), g,
                                          depth_channel=depth)
         assert kw["C_in"] + int(kw["depth_channel"]) == 3
-        got = splat_feed.splat_feed_triton(*args, **kw)
+        got = splat_feed.splat_feed_cuda(*args, **kw)
         want = splat_feed.splat_feed_plain(*args, **kw)
         assert (want[8] // 4 > 0).any()
         for a, b in zip(got[:5], want[:5]):

@@ -277,7 +277,7 @@ def test_combine_depth_argmax():
 def test_launch_device_guard(data, port, monkeypatch):
     """Every shard's kernel launches run inside ``device_guard`` of that
     shard's device, one guard per shard and path, none outside (a ctypes
-    or Triton launch runs in the current device's context, so a second
+    launch runs in the current device's context, so a second
     card needs it); the guard makes a CUDA device current."""
     matrix = data[2]
     events, current = [], []

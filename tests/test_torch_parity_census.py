@@ -43,7 +43,7 @@ DEPARTURES = {
         "K3, ported as csrc/zsplat_accum.cu (CUDA C++) behind "
         "ops/zsplat_accum.py",
     "ops/splat_feed.py::splat_feed_pallas":
-        "K1, ported in Triton as splat_feed_triton",
+        "K1, ported in CUDA C++ as splat_feed_cuda",
     # the feed-off paths and their options
     "config.py::EXPORT_USE_FEED":
         _FEED_OFF,

@@ -4,7 +4,7 @@ The presorted renders on tensors, EXPORT and interactive frames, with
 hand-written kernels for NVIDIA Hopper: the additive modes (univariate,
 bivariate, RGB and RGB-HDR, the depth pick, periodic tiling: loader ->
 presort on the device, ``ops/morton_device.py``, and its decimation-mip
-tiers -> feed kernel K1, ``ops/splat_feed.py``, Triton -> low-rank deposit
+tiers -> feed kernel K1, ``csrc/splat_feed.cu`` -> low-rank deposit
 kernel K2, ``csrc/splat_accum.cu`` -> spill tiers -> pyramid collapse ->
 giant layer -> lattice composite -> colormap) and the surface (z-buffered)
 mode (the same presort -> plain front end -> front-most-fragment kernel K3,

@@ -4,7 +4,7 @@ Each ``.cu`` source is compiled by ``nvcc`` into its own shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds); a library newer than its source is loaded as it
 is.  Libraries land in ``build/torch_kernels/`` at the
-repository root, next to Triton's cache for the port's Triton kernels.
+repository root.
 """
 
 from __future__ import annotations
@@ -102,11 +102,3 @@ def library(name: str, defines=()) -> ctypes.CDLL:
     building it if needed."""
     build([(name, defines)])
     return _libs[_stem(name, defines)]
-
-
-def triton_cache_dir() -> str:
-    """Keep Triton's compile cache inside the build directory."""
-    path = BUILD_DIR / "triton"
-    path.mkdir(parents=True, exist_ok=True)
-    os.environ.setdefault("TRITON_CACHE_DIR", str(path))
-    return os.environ["TRITON_CACHE_DIR"]

@@ -23,7 +23,7 @@ The reference's ``presorted_buckets`` option of ``splat_atlas`` (the
 presort's flat arrays at 96-row windows, its renderer's path with the feed
 kernel off, which exists there because the feed kernel runs interpreted off
 the TPU) is not ported: the port's feed kernel runs on every device it
-supports (Triton on CUDA, its plain version on the CPU).
+supports (CUDA C++ on the card, its plain version on the CPU).
 """
 
 from __future__ import annotations
