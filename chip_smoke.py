@@ -1657,22 +1657,23 @@ def phase_catmull(vis, export_image, card):
     return launches, feed_err, accum_err, summary
 
 
+#: the launch counters of ``performance.counters``, by kernel
+COUNTERS = {"splat_feed": "k1_launches", "accumulate_groups": "k2_launches",
+            "accumulate_max_groups": "k3_launches",
+            "zdeposit_plan": "k3_plan_launches"}
+
+
 def reset_counts():
-    from topsy_tpu_torch.ops import splat_accum, splat_feed, zsplat_accum
-    splat_feed.launches = 0
-    splat_accum.launches = 0
-    zsplat_accum.launches = 0
-    zsplat_accum.plan_launches = 0
+    from topsy_tpu_torch.performance import counters
+    for name in COUNTERS.values():
+        counters[name] = 0
 
 
 def read_counts(tag, need):
     """The kernels' launches since ``reset_counts``; fails unless every
     kernel of ``need`` was launched."""
-    from topsy_tpu_torch.ops import splat_accum, splat_feed, zsplat_accum
-    got = {"splat_feed": splat_feed.launches,
-           "accumulate_groups": splat_accum.launches,
-           "accumulate_max_groups": zsplat_accum.launches,
-           "zdeposit_plan": zsplat_accum.plan_launches}
+    from topsy_tpu_torch.performance import counters
+    got = {k: counters[name] for k, name in COUNTERS.items()}
     check(all(got[k] > 0 for k in need),
           f"a kernel of the {tag} path was not launched: {got}")
     return got

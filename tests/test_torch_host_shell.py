@@ -498,10 +498,9 @@ def test_presentation_without_matplotlib(tmp_path):
     assert "matplotlib is not installed" in out.stderr
 
 
-def test_performance_trace(tmp_path, monkeypatch):
+def test_performance_trace(tmp_path):
     """``trace`` writes a Chrome trace of what ran inside it; intervals
-    become named ranges when ``TOPSY_TPU_TRACE`` is set."""
-    monkeypatch.setattr(performance, "_TRACE_ANNOTATIONS", True)
+    become named ranges while it runs."""
     vis = _port(2000)
     with performance.trace(str(tmp_path)) as t:
         with performance.signposter.use_interval("export_frame"):
@@ -510,6 +509,7 @@ def test_performance_trace(tmp_path, monkeypatch):
     assert os.path.getsize(performance.trace_file(str(tmp_path))) > 0
     names = {e.name for e in t.profiler.events()}
     assert "export_frame" in names
+    assert "topsy.render" in names
     with pytest.raises(RuntimeError):
         performance.stop_trace()
 

@@ -27,6 +27,7 @@ from topsy_tpu_torch.ops import splat_accum as p_accum
 from topsy_tpu_torch.ops.splat_accum import (FLAG_ALL_TINY, FLAG_INACTIVE,
                                              FLAG_MASKED, FLAG_MIXED,
                                              FLAG_POLY, FULL_CLASS)
+from topsy_tpu_torch.performance import counters
 
 # one process's share of the cores when pytest-xdist runs several workers
 # (torch's default, every core in each process, oversubscribes them)
@@ -203,12 +204,12 @@ def test_wrapper_uses_plain_version_on_cpu():
     specs = [(FLAG_POLY, 0)] * 8
     ay, ax, ih, coef, w0, c0, ce, flags = _build(specs, 64, True, 3)
     t = [torch.from_numpy(a.copy()) for a in (ay, ax, ih, coef, w0, c0, ce, flags)]
-    before = p_accum.launches
+    before = counters["k2_launches"]
     kw = dict(atlas_rows=ATLAS_ROWS, atlas_cols=ATLAS_COLS, C=C, group=64,
               window_rows=WINDOW_ROWS)
     a = p_accum.accumulate_groups(*t, **kw)
     b = p_accum.accumulate_groups_plain(*t, **kw)
-    assert p_accum.launches == before
+    assert counters["k2_launches"] == before
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
@@ -265,11 +266,11 @@ def test_kernel_matches_plain_on_card(C_, G, rolled):
     t = [torch.from_numpy(np.array(a)).to(dev) for a in ops]
     base = torch.from_numpy(np.random.RandomState(7).normal(
         0.0, 1e-3, (C_, ATLAS_ROWS, ATLAS_COLS)).astype(np.float32)).to(dev)
-    before = p_accum.launches
+    before = counters["k2_launches"]
     got = p_accum.accumulate_groups_cuda(*t, atlas0=base.clone(), **kw)
     ref = p_accum.accumulate_groups_plain(*t, atlas0=base.clone(), **kw)
     torch.cuda.synchronize()
-    assert p_accum.launches == before + 1
+    assert counters["k2_launches"] == before + 1
     assert (ref - base).abs().max().item() > 0.0
     assert ((got - ref).abs().max() <= 1e-5 * ref.abs().max()).item()
 

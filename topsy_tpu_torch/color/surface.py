@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from .. import config
 from ..ops.smooth import smooth_image
+from ..performance import signposter
 from .maps import Colormap, _log10, sample_lut_1d
 
 
@@ -56,8 +57,9 @@ class ColorAsSurfaceMap(Colormap):
         # occlusion output needs no photometric rescaling (max semantics)
         raw_image = torch.as_tensor(raw_image)
         dev = raw_image.device
-        smoothed = smooth_image(raw_image,
-                                self._params.get("smoothing_scale", 0.01))
+        with signposter.use_interval("topsy.filter"):
+            smoothed = smooth_image(raw_image,
+                                    self._params.get("smoothing_scale", 0.01))
         value = smoothed[..., 0]
         depth = smoothed[..., 1] * self._params.get("depth_scale", 1.0)
 

@@ -15,6 +15,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..performance import signposter
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
@@ -54,13 +56,23 @@ def build(names) -> None:
     entry of ``names`` may also be a ``(name, defines)`` pair: a variant of
     the source built with extra ``-D`` flags into its own library (a
     breakdown build; the port's own libraries take none)."""
-    jobs = {}
+    todo = {}
     for entry in names:
         n, d = (entry, ()) if isinstance(entry, str) else \
             (entry[0], tuple(entry[1]))
         s = _stem(n, d)
-        if s in _libs:
-            continue
+        if s not in _libs:
+            todo[s] = (n, d)
+    if todo:
+        with signposter.use_interval("topsy.kernels.load"):
+            _build(todo)
+
+
+def _build(todo) -> None:
+    """Load or compile and load each library of ``todo`` ({stem: (name,
+    defines)})."""
+    jobs = {}
+    for s, (n, d) in todo.items():
         if _current(s, n):
             # built by an earlier process of this checkout (the workers of
             # a multi-process render load the parent's build)

@@ -31,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..performance import counters, traced
 from . import kernels
 
 WINDOW_ROWS = 64
@@ -50,9 +51,6 @@ FULL_CLASS = len(SIZE_CLASSES) - 1
 
 SUPPORT2 = kernels.KERNEL_SUPPORT ** 2
 FOOT = 8.0  # = splat_atlas.FOOT (the deposit footprint half-width)
-
-#: launches of the CUDA kernel (incremented only where it is launched)
-launches = 0
 
 #: operand elements per batched ``bmm`` of the plain version (bounds memory)
 _BATCH_ELEMS = 1 << 25
@@ -299,7 +297,6 @@ def accumulate_groups_cuda(ay_g, ax_g, ih_g, coef_g, w0, c0, ce, flags, *,
 
     ``build_defines``: the ``-D`` flags of a breakdown build of the kernel
     with one part switched off (``k2_variants.py``); none for the port's."""
-    global launches
     n = w0.shape[0]
     G = group
     dev = w0.device
@@ -339,10 +336,11 @@ def accumulate_groups_cuda(ay_g, ax_g, ih_g, coef_g, w0, c0, ce, flags, *,
     if err != 0:
         raise RuntimeError(f"accumulate_groups kernel launch failed: "
                            f"cudaError {err}")
-    launches += 1
+    counters["k2_launches"] += 1
     return atlas0
 
 
+@traced("topsy.k2")
 def accumulate_groups(ay_g, ax_g, ih_g, coef_g, w0, c0, ce, flags, **kw):
     """The deposit: kernel K2 for CUDA tensors, the plain version for CPU
     tensors.  Same arguments as ``accumulate_groups_plain``."""

@@ -33,6 +33,7 @@ import functools
 import numpy as np
 import torch
 
+from ..performance import counters, traced
 from . import kernels
 from .splat import H_MAX, H_MIN, H_TRUNC, _norm_poly
 from .splat_accum import (COL_ALIGN, FLAG_ALL_TINY, FLAG_INACTIVE,
@@ -40,9 +41,6 @@ from .splat_accum import (COL_ALIGN, FLAG_ALL_TINY, FLAG_INACTIVE,
                           PROFILE_COLS, SIZE_CLASSES, WINDOW_COLS)
 
 F32_MAX = float(np.finfo(np.float32).max)
-
-#: launches of the CUDA kernel (incremented only where it is launched)
-launches = 0
 
 
 def _f32(v) -> float:
@@ -328,7 +326,6 @@ def splat_feed_cuda(fields, values, pergroup, params_f, sp_i, mask=None, *,
     contract as ``splat_feed_plain``).  The outputs are views of two
     buffers: the f32 planes of one (3 + 2C, pg, G), the int32 vectors of
     one (5, pg)."""
-    global launches
     x, y, z, h = fields
     if not x.is_cuda:
         raise ValueError("splat_feed_cuda needs CUDA tensors")
@@ -364,12 +361,13 @@ def splat_feed_cuda(fields, values, pergroup, params_f, sp_i, mask=None, *,
         if err != 0:
             raise RuntimeError(f"splat_feed kernel launch failed: cudaError "
                                f"{err}")
-        launches += 1
+        counters["k1_launches"] += 1
     ay, ax, ih = out[:3].unbind(0)
     w0, c0, ce, flags, nspill = out_i.unbind(0)
     return ay, ax, ih, out[3:3 + C], out[3 + C:], w0, c0, ce, flags, nspill
 
 
+@traced("topsy.k1")
 def splat_feed(fields, values, pergroup, params_f, sp_i, mask=None, **kw):
     """The front end: kernel K1 for CUDA tensors, the plain version for CPU
     tensors."""

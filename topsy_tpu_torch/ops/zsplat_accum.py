@@ -55,6 +55,7 @@ import functools
 
 import torch
 
+from ..performance import counters, traced
 from .splat_accum import (FULL_CLASS, PROFILE_COLS, SIZE_CLASSES,
                           WINDOW_COLS, WINDOW_ROWS, _check)
 
@@ -64,11 +65,6 @@ FLAG_SKIP = 0      # no valid fragment in the group
 FLAG_ACTIVE = 1    # active: combined flag is FLAG_ACTIVE * 4 + size_class
 
 FOOT = 8.0         # footprint truncation, as splat_atlas.FOOT
-
-#: launches of the CUDA kernel (incremented only where it is launched) and
-#: of its plan kernel (once per kernel call and per ``deposit_plan_cuda``)
-launches = 0
-plan_launches = 0
 
 #: (group, row, column, particle) entries per step of the plain version
 #: (bounds its memory)
@@ -398,7 +394,6 @@ def _call_constants(G: int, window_rows: int, window_cols: int):
 
 def deposit_plan_cuda(flags: torch.Tensor, rolled: bool):
     """``deposit_plan`` by the kernel's plan kernel (for CUDA flags)."""
-    global plan_launches
     _check(flags, "flags", torch.int32, flags.shape, flags.device)
     n = flags.shape[0]
     out = torch.empty(n + len(SIZE_CLASSES) + 1, dtype=torch.int32,
@@ -409,7 +404,7 @@ def deposit_plan_cuda(flags: torch.Tensor, rolled: bool):
         raise RuntimeError(f"zdeposit plan kernel launch failed: cudaError "
                            f"{err}")
     if n:
-        plan_launches += 1
+        counters["k3_plan_launches"] += 1
     return out[:n], out[n:]
 
 
@@ -423,7 +418,6 @@ def accumulate_max_packed_cuda(keys, ay_g, ax_g, ih_g, pay_g, w0, c0, ce,
     then one launch per size class the call can dispatch.
     ``build_defines``: the ``-D`` flags of a breakdown build of the kernel
     with one part switched off (``k2_variants.py``); none for the port's."""
-    global launches, plan_launches
     n = w0.shape[0]
     G = group
     dev = w0.device
@@ -460,9 +454,9 @@ def accumulate_max_packed_cuda(keys, ay_g, ax_g, ih_g, pay_g, w0, c0, ce,
     if err != 0:
         raise RuntimeError(f"accumulate_max_groups kernel launch failed: "
                            f"cudaError {err}")
-    launches += 1
+    counters["k3_launches"] += 1
     if n:
-        plan_launches += 1
+        counters["k3_plan_launches"] += 1
     return keys
 
 
@@ -481,6 +475,7 @@ def accumulate_max_groups_cuda(ay_g, ax_g, ih_g, pay_g, w0, c0, ce, flags, *,
     return unpack_atlas(keys)
 
 
+@traced("topsy.k3")
 def accumulate_max_packed(keys, *args, **kw):
     """The deposit into packed keys: kernel K3 for CUDA tensors, the plain
     version for CPU tensors.  Same arguments as

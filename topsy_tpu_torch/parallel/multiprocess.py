@@ -161,11 +161,11 @@ def worker(cfg: dict):
             np.savez(cfg["out"], natural=lens[0].numpy(),
                      negotiated=lens[1].numpy(), n_mips=len(mips),
                      global_n=global_n, backend=backend, **out)
-        from ..ops import splat_accum, splat_feed
+        from ..performance import counters
         print(json.dumps({"rank": rank, "natural": int(lens[0, rank]),
                           "launches": {
-                              "splat_feed": splat_feed.launches,
-                              "accumulate_groups": splat_accum.launches},
+                              "splat_feed": counters["k1_launches"],
+                              "accumulate_groups": counters["k2_launches"]},
                           "negotiated": int(lens[1, rank]),
                           "mips": len(mips), "seconds": seconds,
                           "block_sum": float(block[..., 0].sum()),

@@ -109,6 +109,15 @@ class MeshSplatterMixin:
                        for m in mips])
         return True
 
+    def _block_particles(self, col0: int, ncols: int) -> int:
+        """The real particles in columns [col0, col0 + ncols) of the mesh's
+        tier of the progression's last block."""
+        splatter = self._get_splatter()
+        ti = self._column_tier()
+        layout = (splatter.presorted_layout if ti is None
+                  else splatter.presorted_mip_layouts()[ti])
+        return int(layout.real_per_column[col0:col0 + ncols].sum())
+
     def _column_tier(self):
         """The splatter's tier of the progression's last block (None = the
         main layout)."""

@@ -38,6 +38,7 @@ from .. import config
 from ..camera import world_to_clip_matrix
 from ..drawreason import DrawReason
 from ..ops import splat, splat_atlas, splat_giant
+from ..performance import counters, signposter, traced
 from ..util import FrameClock, TimeDeviceOperation
 from .store import ParticleStore, bucket_size
 
@@ -255,6 +256,7 @@ class SPHRenderer:
 
     # -- render loop -------------------------------------------------------------
 
+    @traced("topsy.render")
     def render(self, draw_reason=DrawReason.CHANGE):
         if draw_reason == DrawReason.PRESENTATION_CHANGE:
             return
@@ -284,6 +286,7 @@ class SPHRenderer:
             self._export_renders += 1
             if use_presorted:
                 self._render_presorted(matrix, scale, first_block=True)
+                counters["particles_deposited"] += self._store.n
                 prog.mark_all_rendered(
                     self._render_timer.total_time_in_frame())
                 self._finish_frame(prog)
@@ -304,9 +307,12 @@ class SPHRenderer:
                 if l <= 0:
                     continue
                 if columns:
+                    counters["particles_deposited"] += \
+                        self._block_particles(s, l)
                     first_block = self._render_columns_range(
                         matrix, scale, s, l, first_block)
                     continue
+                counters["particles_deposited"] += l
                 bucket = bucket_size(l, self._store.n_pad)
                 # a block larger than a bucket renders in bucket pieces
                 for piece in range(0, l, bucket):
@@ -429,22 +435,25 @@ class SPHRenderer:
         the plan and the layer."""
         if keep and self._giant_bucket is not None:
             return
-        store = self._store
-        num_levels = splat_atlas.default_pyramid(self._resolution).num_levels
-        size, b_thresh = splat_giant.giant_plan(
-            store.giant_meta(), self._resolution, float(self.scale),
-            num_levels)
-        self._giant_bucket = b_thresh
-        if size == 0:
-            self._giant_image = None
-            return
-        with self._render_timer:
-            cand = store.giant_candidates(size)
-            self._giant_image = _render_giant_layer(
-                cand["pos"], store.giant_values_for(self._buffer_name, size),
-                cand["buckets"], cand["cell_ids"], self._cell_table, matrix,
-                scale, resolution=self._resolution,
-                depth_channel=self._depth_channel)
+        with signposter.use_interval("topsy.giants"):
+            store = self._store
+            num_levels = splat_atlas.default_pyramid(
+                self._resolution).num_levels
+            size, b_thresh = splat_giant.giant_plan(
+                store.giant_meta(), self._resolution, float(self.scale),
+                num_levels)
+            self._giant_bucket = b_thresh
+            if size == 0:
+                self._giant_image = None
+                return
+            with self._render_timer:
+                cand = store.giant_candidates(size)
+                self._giant_image = _render_giant_layer(
+                    cand["pos"],
+                    store.giant_values_for(self._buffer_name, size),
+                    cand["buckets"], cand["cell_ids"], self._cell_table,
+                    matrix, scale, resolution=self._resolution,
+                    depth_channel=self._depth_channel)
 
     def _use_presorted(self) -> bool:
         """Whether an EXPORT frame renders the presort: once a layout is
@@ -476,6 +485,12 @@ class SPHRenderer:
             depth_channel=self._depth_channel, backend=self._backend)
         self._dropped_splats = dropped
         return im
+
+    def _block_particles(self, col0: int, ncols: int) -> int:
+        """The real particles in columns [col0, col0 + ncols) of the tier
+        the progression's last block names."""
+        rpc = self._block_tier().layout.real_per_column
+        return int(rpc[col0:col0 + ncols].sum())
 
     def _render_columns_range(self, matrix, scale, col0: int, ncols: int,
                               first_block: bool) -> bool:
@@ -513,9 +528,10 @@ class SPHRenderer:
         gen = getattr(prog, "selection_generation", None)
         got = self._fields_masks.get(tier)
         if got is None or got[0] != gen:
-            G = tier.layout.pad_group
-            mask = self._cell_table[tier.cell_ids.long()].to(
-                torch.float32).reshape(tier.n_out // G, G)
+            with signposter.use_interval("topsy.cull_mask"):
+                G = tier.layout.pad_group
+                mask = self._cell_table[tier.cell_ids.long()].to(
+                    torch.float32).reshape(tier.n_out // G, G)
             got = self._fields_masks[tier] = (gen, mask)
         return got[1]
 

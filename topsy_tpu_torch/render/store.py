@@ -29,6 +29,7 @@ import torch
 from .. import config, convert
 from ..loaders import AbstractDataLoader
 from ..ops import morton, morton_device, splat_giant
+from ..performance import signposter
 
 logger = logging.getLogger(__name__)
 
@@ -201,17 +202,19 @@ class ParticleStore:
         the host presort where the device build returns None."""
         if self._layout is not None:
             return
-        layout = morton_device.build_presorted_device(self.pos_smooth,
-                                                      n_real=self.n)
-        gather = layout
-        if layout is None:
-            logger.warning("Device presort unavailable: host presort "
-                           "fallback")
-            layout = morton.build_presorted(
-                self._loader.get_pos_smooth().astype(np.float32))
-            gather = convert.device_layout_from_host(layout, self.device)
-        self._layout = layout
-        self._main = PresortedMipTier(self, gather)
+        with signposter.use_interval("topsy.presort"):
+            layout = morton_device.build_presorted_device(self.pos_smooth,
+                                                          n_real=self.n)
+            gather = layout
+            if layout is None:
+                logger.warning("Device presort unavailable: host presort "
+                               "fallback")
+                layout = morton.build_presorted(
+                    self._loader.get_pos_smooth().astype(np.float32))
+                gather = convert.device_layout_from_host(layout,
+                                                         self.device)
+            self._layout = layout
+            self._main = PresortedMipTier(self, gather)
         self.n_presorted = layout.n_out
         logger.info("Built presorted (bucket, Morton) order: %d -> %d slots",
                     self.n, self.n_presorted)
@@ -328,19 +331,22 @@ class ParticleStore:
         tiers = []
         layout = self._layout
         if isinstance(layout, morton_device.DevicePresortedLayout):
-            while len(tiers) < config.COLUMN_MIP_MAX_TIERS:
-                w = morton.min_slice_width(layout)
-                floor = int(layout.real_per_column[:min(w, layout.pad_group)]
-                            .sum())
-                if floor <= config.COLUMN_MIP_FLOOR_TARGET:
-                    break
-                mip = morton_device.build_mip_layout(layout, self.pos_smooth)
-                if mip is None:
-                    break
-                tiers.insert(0, PresortedMipTier(self, mip))
-                logger.info("Built column-mip tier %d: %d real particles",
-                            len(tiers), int(mip.real_per_column.sum()))
-                layout = mip
+            with signposter.use_interval("topsy.mips"):
+                while len(tiers) < config.COLUMN_MIP_MAX_TIERS:
+                    w = morton.min_slice_width(layout)
+                    floor = int(layout.real_per_column[
+                        :min(w, layout.pad_group)].sum())
+                    if floor <= config.COLUMN_MIP_FLOOR_TARGET:
+                        break
+                    mip = morton_device.build_mip_layout(layout,
+                                                         self.pos_smooth)
+                    if mip is None:
+                        break
+                    tiers.insert(0, PresortedMipTier(self, mip))
+                    logger.info("Built column-mip tier %d: %d real "
+                                "particles", len(tiers),
+                                int(mip.real_per_column.sum()))
+                    layout = mip
         self._mip_tiers = tiers
         return tiers
 

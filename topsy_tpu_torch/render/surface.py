@@ -30,6 +30,7 @@ import torch
 
 from ..drawreason import DrawReason
 from ..ops import splat, splat_atlas, splat_giant, zsplat, zsplat_atlas
+from ..performance import counters, signposter, traced
 from .sph import SPHRenderer, _block_rows
 from .store import ParticleStore, bucket_size
 
@@ -157,9 +158,10 @@ class SurfaceSPHRenderer(SPHRenderer):
                          wrapping=wrapping, backend=backend,
                          share_render_progression=share_render_progression)
         loader = store._loader
-        self._percentile_to_den_cut = zsplat.density_cut_percentiles(
-            loader.get_mass(), loader.get_smooth(),
-            self._rho_percentiles_num_samples)
+        with signposter.use_interval("topsy.density_table"):
+            self._percentile_to_den_cut = zsplat.density_cut_percentiles(
+                loader.get_mass(), loader.get_smooth(),
+                self._rho_percentiles_num_samples)
         lo, hi = self.get_density_cut_percentile_range()
         self._cut_val = 0.5 * (lo + hi)
         self._surface_giant_layer = None
@@ -182,6 +184,7 @@ class SurfaceSPHRenderer(SPHRenderer):
 
     # -- render ----------------------------------------------------------------------
 
+    @traced("topsy.render")
     def render(self, draw_reason=DrawReason.CHANGE):
         if draw_reason == DrawReason.PRESENTATION_CHANGE:
             return
@@ -222,9 +225,12 @@ class SurfaceSPHRenderer(SPHRenderer):
                 if l <= 0:
                     continue
                 if columns:
+                    counters["particles_deposited"] += \
+                        self._block_particles(s, l)
                     first_block = self._render_columns_surface(
                         matrix, scale, cut, s, l, first_block)
                     continue
+                counters["particles_deposited"] += l
                 bucket = bucket_size(l, store.n_pad)
                 for piece in range(0, l, bucket):
                     with self._render_timer:
@@ -259,21 +265,24 @@ class SurfaceSPHRenderer(SPHRenderer):
         ``keep`` (a REFINE continuation, same view) reuses both."""
         if keep and self._giant_bucket is not None:
             return
-        store = self._store
-        num_levels = splat_atlas.default_pyramid(self._resolution).num_levels
-        size, b_thresh = splat_giant.giant_plan(
-            store.giant_meta(), self._resolution, float(self.scale),
-            num_levels)
-        self._giant_bucket = b_thresh
-        if size == 0:
-            self._surface_giant_layer = None
-            return
-        with self._render_timer:
-            cand = store.giant_candidates(size)
-            self._surface_giant_layer = _render_giant_layer_surface(
-                cand["pos"], store.giant_values_for(self._buffer_name, size),
-                cand["buckets"], cand["cell_ids"], self._cell_table, matrix,
-                scale, cut, resolution=self._resolution)
+        with signposter.use_interval("topsy.giants"):
+            store = self._store
+            num_levels = splat_atlas.default_pyramid(
+                self._resolution).num_levels
+            size, b_thresh = splat_giant.giant_plan(
+                store.giant_meta(), self._resolution, float(self.scale),
+                num_levels)
+            self._giant_bucket = b_thresh
+            if size == 0:
+                self._surface_giant_layer = None
+                return
+            with self._render_timer:
+                cand = store.giant_candidates(size)
+                self._surface_giant_layer = _render_giant_layer_surface(
+                    cand["pos"],
+                    store.giant_values_for(self._buffer_name, size),
+                    cand["buckets"], cand["cell_ids"], self._cell_table,
+                    matrix, scale, cut, resolution=self._resolution)
 
     def _render_columns_surface(self, matrix, scale, cut, col0: int,
                                 ncols: int, first_block: bool) -> bool:

@@ -52,6 +52,7 @@ from .loaders import AbstractDataLoader, TestDataLoader
 from .overlays.line import Line, SimCube
 from .overlays.scalebar import ScalebarOverlay
 from .overlays.text import TextOverlay
+from .performance import signposter
 from .render import periodic, sph, surface
 from .render.store import ParticleStore
 from .view_synchronizer import SynchronizationMixin
@@ -227,7 +228,10 @@ class VisualizerBase:
         if (changed_type or params.get("vmin") is None
                 or params.get("vmax") is None):
             logger.info("Autoranging colormap parameters")
-            self._colormap.autorange(self._sph.get_image_device())
+            # the range is taken from a render of the view, the first
+            # EXPORT when the renderer has not rendered yet
+            with signposter.use_interval("topsy.autorange"):
+                self._colormap.autorange(self._sph.get_image_device())
         self._colorbar = None
         self._colorbar_wanted = (
             params["type"] not in ("rgb", "surface")
@@ -393,9 +397,10 @@ class VisualizerBase:
             width, height = self.canvas.width_physical, self.canvas.height_physical
         else:
             width, height = target
-        if not self._prevent_sph_rendering:
-            self.render_sph(reason)
-        frame = self._compose_presentation(width, height)
+        with signposter.draw():
+            if not self._prevent_sph_rendering:
+                self.render_sph(reason)
+            frame = self._compose_presentation(width, height)
         self.last_frame = frame
         if hasattr(self.canvas, "present_frame"):
             self.canvas.present_frame(frame)
@@ -405,15 +410,26 @@ class VisualizerBase:
         return frame
 
     def _compose_presentation(self, width, height) -> np.ndarray:
-        rgba = self._colormap.to_rgba(self._sph.get_output_image(),
-                                      self._sph.last_render_mass_scale)
-        host = fit_to_window(rgba, width, height).to("cpu", non_blocking=True)
-        # the readback is an interactive frame's one barrier: stop the frame
-        # clock behind it (this waits for the copy) and report the frame's
-        # span to the renderer's deferred LOD and fps timing
-        self._sph.frame_clock.stop()
-        self._sph.notify_presentation_barrier()
-        img = host.numpy().astype(np.float32)
+        with signposter.use_interval("topsy.present"):
+            with signposter.use_interval("topsy.present.colormap"):
+                rgba = self._colormap.to_rgba(
+                    self._sph.get_output_image(),
+                    self._sph.last_render_mass_scale)
+                host = fit_to_window(rgba, width, height).to(
+                    "cpu", non_blocking=True)
+            # the readback is an interactive frame's one barrier: stop the
+            # frame clock behind it (this waits for the copy) and report
+            # the frame's span to the renderer's deferred LOD and fps timing
+            with signposter.use_interval("topsy.present.readback"):
+                self._sph.frame_clock.stop()
+                self._sph.notify_presentation_barrier()
+            with signposter.use_interval("topsy.present.host"):
+                return self._composite_overlays(host.numpy())
+
+    def _composite_overlays(self, rgba: np.ndarray) -> np.ndarray:
+        """The presented frame from the read-back RGBA: the overlays
+        composited, in the canvas's format."""
+        img = rgba.astype(np.float32)
         img[..., 3] = 1.0
         text = text_overlays_available()
         if (self.show_colorbar and text
