@@ -17,7 +17,9 @@ same snapshot, Visualizer, traffic and warm-up) with the port's tracing
   frame's host ms, self ms, device ms and device operations, each device
   operation given to the innermost span its launch was made in; the
   largest device operations with the spans that launched them; the idle
-  gaps of the card summed by the span the host was in as each began.
+  gaps of the card summed by the span the host was in as each began;
+* ``steps``, ``draws`` and ``counters``: the window's traffic steps, its
+  ``Visualizer.draw`` calls and the changes of ``performance.counters``.
 
 ``--setup-trace`` also traces set-up with the profiler and reduces it the
 same way (``setup.trace``).  ``--ab B`` instead times each step of the
@@ -303,6 +305,7 @@ def breakdown(workload: str, seed: int, seconds: float, device="cuda",
     performance.signposter.clear()
     performance.start_trace(log_dir)
     c0 = dict(performance.counters)
+    d0 = performance.signposter.draws
     steps, t0 = 0, time.perf_counter()
     with torch.profiler.record_function(WINDOW):
         while time.perf_counter() - t0 < seconds:
@@ -312,7 +315,8 @@ def breakdown(workload: str, seed: int, seconds: float, device="cuda",
     counts = {k: v - c0.get(k, 0) for k, v in performance.counters.items()}
     window = reduce_program(performance.trace_file(log_dir))
     os.remove(performance.trace_file(log_dir))
-    return {"setup": setup, "steps": steps, "counters": counts,
+    return {"setup": setup, "steps": steps,
+            "draws": performance.signposter.draws - d0, "counters": counts,
             "window": window}
 
 

@@ -21,8 +21,8 @@ value, and a running ``start_trace`` holds it on) each interval
   (at most ``MAX_INTERVALS``) until ``signposter.clear()``.
 
 With tracing off an interval costs one attribute check.  ``counters``
-(name -> count, always on) counts the kernels' launches and the particles
-the renderers hand to the deposit.
+(name -> count, always on) counts the kernels' launches, the particles
+the renderers hand to the deposit and the presented frames by path.
 """
 
 from __future__ import annotations
@@ -48,8 +48,10 @@ MAX_INTERVALS = 1 << 18
 
 #: always-on counts: ``k1_launches``, ``k2_launches``, ``k3_launches`` and
 #: ``k3_plan_launches`` (CUDA launches, made only where a kernel is
-#: launched) and ``particles_deposited`` (the particles of the blocks the
-#: progression hands a renderer, summed on the host)
+#: launched), ``particles_deposited`` (the particles of the blocks the
+#: progression hands a renderer, summed on the host) and
+#: ``present_device_frames`` / ``present_host_frames`` (presented frames
+#: made on the renderer's device / by the host's float path)
 counters: collections.Counter = collections.Counter()
 
 

@@ -24,7 +24,9 @@ port's copies of the reference's classes; the colorbar (which needs
 matplotlib) is built on first use.  Where matplotlib is not installed
 the presentation draws no text overlay (colorbar, scale bar, status
 line: each is a matplotlib raster) and says so once in the log; the
-status text is still kept up to date.  ``OffscreenCanvas``
+status text is still kept up to date.  Where nothing composites on the
+host, the presented uint8 frame is made on the renderer's device and
+only it is read back.  ``OffscreenCanvas``
 and ``DrawReason`` are re-exported here for callers of the port.
 ``mesh`` (``parallel.make_mesh``) renders every mode over a particle
 mesh through the renderers of ``render/distributed.py``; the mesh's first
@@ -52,7 +54,7 @@ from .loaders import AbstractDataLoader, TestDataLoader
 from .overlays.line import Line, SimCube
 from .overlays.scalebar import ScalebarOverlay
 from .overlays.text import TextOverlay
-from .performance import signposter
+from .performance import counters, signposter
 from .render import periodic, sph, surface
 from .render.store import ParticleStore
 from .view_synchronizer import SynchronizationMixin
@@ -72,6 +74,23 @@ def text_overlays_available() -> bool:
                        "colorbar, scale bar or status line")
         return False
     return True
+
+
+def quantize_rgba8_host(img: np.ndarray) -> np.ndarray:
+    """The presented 8-bit levels of a float32 RGBA: clipped to [0, 1],
+    scaled by 255, offset by 0.5 and truncated."""
+    return (np.clip(img, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
+
+
+def quantize_rgba8(img: torch.Tensor) -> torch.Tensor:
+    """The opaque presented frame of a float32 RGBA on its device, as a
+    C-contiguous uint8 tensor: byte for byte ``quantize_rgba8_host`` of
+    the image with alpha 1.  The clamp, the scale and the offset are
+    separate float32 operations, as numpy's are, and the cast truncates
+    as ``astype(np.uint8)`` does."""
+    frame = (img.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).contiguous()
+    frame[..., 3] = 255
+    return frame
 
 
 def resolve_device(device) -> torch.device:
@@ -390,7 +409,10 @@ class VisualizerBase:
         and handed to the canvas.
         ``target``: optional (width, height), defaults to the canvas size.
         An interactive draw that leaves the progression incomplete requests
-        a REFINE draw."""
+        a REFINE draw.  A frame made on the renderer's CUDA device (nothing
+        composited on the host, ``_compose_presentation``) lies in
+        page-locked host memory that the allocator keeps pinned: a caller
+        that keeps frames should keep copies (``frame.copy()``)."""
         if self._colormap is None:
             return None
         if target is None:
@@ -409,14 +431,41 @@ class VisualizerBase:
             self.invalidate(DrawReason.REFINE)
         return frame
 
+    def _active_overlays(self) -> list:
+        """The overlays' composites that the host draws into this frame, in
+        order: the colorbar, scale bar and status line where matplotlib
+        rasterizes them, the crosshairs and the periodic box."""
+        text = text_overlays_available()
+        overlays = []
+        if (self.show_colorbar and text
+                and self._colorbar_overlay() is not None):
+            overlays.append(self._colorbar.composite)
+        if self.show_scalebar and text:
+            overlays.append(self._scalebar.composite)
+        if self.crosshairs_visible:
+            overlays.append(self._crosshairs.composite)
+        if self._periodic_tiling:
+            overlays.append(self._cube.composite)
+        if self.show_status and text:
+            overlays.append(self._status.composite)
+        return overlays
+
     def _compose_presentation(self, width, height) -> np.ndarray:
+        """The presented frame.  With no overlay to composite on a uint8
+        canvas it is made on the renderer's device and only its uint8
+        bytes are read back (into page-locked memory); otherwise the float
+        RGBA is read back and ``_composite_overlays`` makes it."""
+        overlays = self._active_overlays()
+        on_device = self.canvas_format != "rgba16float" and not overlays
         with signposter.use_interval("topsy.present"):
             with signposter.use_interval("topsy.present.colormap"):
-                rgba = self._colormap.to_rgba(
-                    self._sph.get_output_image(),
-                    self._sph.last_render_mass_scale)
-                host = fit_to_window(rgba, width, height).to(
-                    "cpu", non_blocking=True)
+                rgba = fit_to_window(
+                    self._colormap.to_rgba(self._sph.get_output_image(),
+                                           self._sph.last_render_mass_scale),
+                    width, height)
+                if on_device:
+                    rgba = quantize_rgba8(rgba)
+                host = rgba.to("cpu", non_blocking=True)
             # the readback is an interactive frame's one barrier: stop the
             # frame clock behind it (this waits for the copy) and report
             # the frame's span to the renderer's deferred LOD and fps timing
@@ -424,34 +473,39 @@ class VisualizerBase:
                 self._sph.frame_clock.stop()
                 self._sph.notify_presentation_barrier()
             with signposter.use_interval("topsy.present.host"):
-                return self._composite_overlays(host.numpy())
+                if self.show_status:
+                    self._update_status_text()
+                if on_device:
+                    counters["present_device_frames"] += 1
+                    return host.numpy()
+                counters["present_host_frames"] += 1
+                return self._composite_overlays(host.numpy(), overlays)
 
-    def _composite_overlays(self, rgba: np.ndarray) -> np.ndarray:
-        """The presented frame from the read-back RGBA: the overlays
-        composited, in the canvas's format."""
+    def _composite_overlays(self, rgba: np.ndarray, overlays) -> np.ndarray:
+        """The presented frame from the read-back RGBA: ``overlays``
+        (``_active_overlays``) composited, in the canvas's format."""
         img = rgba.astype(np.float32)
         img[..., 3] = 1.0
-        text = text_overlays_available()
-        if (self.show_colorbar and text
-                and self._colorbar_overlay() is not None):
-            self._colorbar.composite(img)
-        if self.show_scalebar and text:
-            self._scalebar.composite(img)
-        if self.crosshairs_visible:
-            self._crosshairs.composite(img)
-        if self._periodic_tiling:
-            self._cube.composite(img)
-        if self.show_status:
-            self._update_and_display_status(img)
+        for composite in overlays:
+            composite(img)
         if self.canvas_format == "rgba16float":
             return img.astype(np.float16)
-        return (np.clip(img, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
+        return quantize_rgba8_host(img)
 
     def display_status(self, text, timeout=0.5):
         self._override_status_text = text
         self._override_status_text_until = time.time() + timeout
 
     def _update_and_display_status(self, img):
+        """The status line's text brought up to date
+        (``_update_status_text``) and, where matplotlib imports, drawn
+        into ``img``: the reference's one call for both, which
+        ``_compose_presentation`` makes as two."""
+        self._update_status_text()
+        if text_overlays_available():
+            self._status.composite(img)
+
+    def _update_status_text(self):
         """The status line: an override of ``display_status`` while it
         lasts, otherwise (every ``STATUS_LINE_UPDATE_INTERVAL`` seconds)
         the fps of the running mean of frame times (CUDA events on the
@@ -478,8 +532,6 @@ class VisualizerBase:
                 text += f" /{1.0 / geom:.1f}gf"
             self._status.text = text
             self._status.update()
-        if text_overlays_available():
-            self._status.composite(img)
 
     # -- image access ----------------------------------------------------------------
 
@@ -502,7 +554,7 @@ class VisualizerBase:
         rgba = rgba.cpu().numpy()
         if self.canvas_format == "rgba16float":
             return rgba.astype(np.float16)
-        return (np.clip(rgba, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
+        return quantize_rgba8_host(rgba)
 
     def get_presentation_image(self, resolution=(640, 480)) -> np.ndarray:
         """Full presentation frame with overlays at the given size."""
