@@ -7,7 +7,8 @@ state.  It must come out as not correct.
 For each seed it renders, in bfloat16 and in float32, the views of the
 first answers the cell's traffic asks for after its warm-up (as many as a
 run checks), ranges the colormap at the starting view in each precision,
-and prints one JSON line: the cell, the seed, each number of the check
+all through the configuration's check module (``check.module``), and
+prints one JSON line: the cell, the seed, each number of the check
 (the worst over the views) beside its limit, and whether the limits pass.
 The benchmark's runs do not run it.
 """
@@ -75,13 +76,14 @@ def control(bench: dict, workload: str, seed: int, device,
     plan = traffic.Traffic(load_json("traffic", f"{cell['traffic']}.json"),
                            seed)
     setup, views = traffic_views(config, plan)
-    low = check.Reference(config, seed, device, setup, dtype=torch.bfloat16)
-    ref = check.Reference(config, seed, device, setup)
+    judge = check.module(config)
+    low = judge.Reference(config, seed, device, setup, dtype=torch.bfloat16)
+    ref = judge.Reference(config, seed, device, setup)
     worst = {}
     for view in views:
         raw_low, raw = low.raw(view), ref.raw(view)
-        got = check.compare(ref.surface, raw_low.float(), raw,
-                            low.frame(raw_low), ref.frame(raw))
+        got = judge.compare(raw_low.float(), raw, low.frame(raw_low),
+                            ref.frame(raw))
         for k, v in got.items():
             worst[k] = max(worst.get(k, -np.inf), v)
     return {"workload": workload, "seed": seed, "numbers": worst,

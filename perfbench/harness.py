@@ -6,7 +6,14 @@ metric is read from its own file under this directory, found by the name
 ``BENCHMARK.json`` gives it:
 
 * ``configs/<config>.json``: the deployment (snapshot size, view, mode,
-  the check's limits);
+  the check's limits), which names its snapshot module (``"snapshot"``)
+  and its check module (``"check"``), and may give ``"visualizer"``, a
+  dict of further keyword arguments of ``Visualizer`` (such as
+  ``{"periodic_tiling": true}``);
+* ``snapshots/<snapshot>.py``: ``make(config, seed, device)``, the seed's
+  snapshot as a dict of device tensors (``check.py`` gives its keys);
+* ``checks/<check>.py``: the reference renders and the numbers compared
+  (``check.py`` gives the module's interface);
 * ``traffic/<traffic>.json``: the parameters of the one generator
   (``traffic.py``);
 * ``spans/<span>.json``: the program's functions a span wraps in a traced
@@ -57,45 +64,46 @@ def load_reader(kind: str, name: str):
 
 def make_loader_class():
     """A loader that hands the program the benchmark's own snapshot on the
-    device (``AbstractDataLoader`` with ``device_arrays``)."""
+    device (``AbstractDataLoader`` with ``device_arrays``), served as the
+    snapshot module gives it."""
     from topsy_tpu_torch.loaders import AbstractDataLoader
 
     class SnapshotLoader(AbstractDataLoader):
-        def __init__(self, pos_smooth, mass, qty, quantity_name):
-            self._n = pos_smooth.shape[0]
-            self._qname = quantity_name
-            self._dev = {"pos_smooth": pos_smooth, "mass": mass,
-                         "quantities": {quantity_name: qty}}
+        def __init__(self, snap: dict):
+            self._snap = snap
 
         def device_arrays(self):
-            return self._dev
+            return self._snap
 
         def __len__(self):
-            return self._n
+            return self._snap["pos_smooth"].shape[0]
 
         def get_positions(self):
-            return self._dev["pos_smooth"][:, :3].cpu().numpy()
+            return self._snap["pos_smooth"][:, :3].cpu().numpy()
 
         def get_smooth(self):
-            return self._dev["pos_smooth"][:, 3].cpu().numpy()
+            return self._snap["pos_smooth"][:, 3].cpu().numpy()
 
         def get_mass(self):
-            return self._dev["mass"].cpu().numpy()
+            return self._snap["mass"].cpu().numpy()
 
         def get_named_quantity(self, name):
-            if name == self._qname:
-                return self._dev["quantities"][name].cpu().numpy()
-            raise KeyError(name)
+            return self._snap["quantities"][name].cpu().numpy()
 
         def get_quantity_names(self):
-            return [self._qname]
+            return list(self._snap["quantities"])
 
         def get_quantity_label(self, quantity_name):
             return quantity_name or "density"
 
         def get_rgb_masses(self):
-            m = self._dev["mass"]
+            if "rgb" in self._snap:
+                return self._snap["rgb"].cpu().numpy()
+            m = self._snap["mass"]
             return torch.stack([m, m, m], dim=1).cpu().numpy()
+
+        def get_periodicity_scale(self):
+            return self._snap.get("periodicity_scale")
 
         def get_position_units(self):
             return "kpc"
@@ -111,18 +119,25 @@ def view_of(vis) -> dict:
 
 
 def build(config: dict, seed: int, device, snapshot):
-    """The Visualizer of a deployment over the benchmark's snapshot, its
-    quantity set (which ranges the colormap at the starting view)."""
+    """The Visualizer of a deployment over the benchmark's snapshot (the
+    dict of ``check.snapshot``), its quantity set (which ranges the
+    colormap at the starting view), with the configuration's
+    ``"visualizer"`` keyword arguments."""
     from topsy_tpu_torch.canvas import OffscreenCanvas
     from topsy_tpu_torch.visualizer import Visualizer
-    pos_smooth, mass, qty = snapshot
+    if not isinstance(snapshot, dict):
+        # program_spans.py at the root still hands reference.snapshot's
+        # (pos_smooth, mass, quantity) tuple
+        ps, mass, qty = snapshot
+        snapshot = {"pos_smooth": ps, "mass": mass,
+                    "quantities": {config["quantity"]: qty}}
     vis = Visualizer(data_loader_class=make_loader_class(),
-                     data_loader_args=(pos_smooth, mass, qty,
-                                       config["quantity"]),
+                     data_loader_args=(snapshot,),
                      render_resolution=config["resolution"],
                      canvas_class=OffscreenCanvas,
                      render_mode=config["render_mode"],
-                     colormap_name=config["colormap"], device=device)
+                     colormap_name=config["colormap"], device=device,
+                     **config.get("visualizer", {}))
     vis.canvas.resize_complete(*config["canvas"])
     vis.show_colorbar = vis.show_scalebar = vis.show_status = False
     vis.scale = config["scale"]
@@ -212,10 +227,9 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     plan = traffic.Traffic(load_json("traffic", f"{cell['traffic']}.json"),
                            seed)
     from topsy_tpu_torch.drawreason import DrawReason
-    from . import reference
 
-    snap = reference.snapshot(config["n_particles"], seed, device,
-                              mass=config["particle_mass"])
+    check.module(config)  # a check that has no module fails before set-up
+    snap = check.snapshot(config, seed, device)
     vis = build(config, seed, device, snap)
     setup_view = view_of(vis)
     params = vis.colormap.get_parameters()

@@ -18,7 +18,7 @@ import sys
 import pytest
 import torch
 
-from perfbench import harness, readers, trace, traffic, work
+from perfbench import check, control, harness, readers, trace, traffic, work
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.join(ROOT, "perfbench")
@@ -36,6 +36,11 @@ def test_every_name_resolves():
         cfg = json.load(open(os.path.join(ROOT, c["file"])))
         assert cfg["name"] == c["name"]
         assert cfg["limits"]
+        for kind, key in (("snapshots", "snapshot"), ("checks", "check")):
+            assert os.path.isfile(os.path.join(HERE, kind, f"{cfg[key]}.py"))
+        assert callable(check.named("snapshots", cfg["snapshot"]).make)
+        judge = check.module(cfg)
+        assert callable(judge.Reference) and callable(judge.compare)
     for w in b["workloads"]:
         assert w["config"] in names
         plan = traffic.Traffic(harness.load_json("traffic",
@@ -265,7 +270,7 @@ def _top_level_imports(path):
 
 def _sources():
     out = [os.path.join(HERE, f) for f in CHIP_PATH]
-    for sub in ("end_to_end", "metrics"):
+    for sub in ("end_to_end", "metrics", "snapshots", "checks"):
         d = os.path.join(HERE, sub)
         out += [os.path.join(d, f) for f in os.listdir(d) if f.endswith(".py")]
     return out
@@ -306,3 +311,173 @@ def test_run_without_the_program_prints_no_result(tmp_path):
                         "--seconds", "1", "--trace", "0"],
                        capture_output=True, text=True, cwd=tmp_path)
     assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+# -- what a configuration names -------------------------------------------------------
+
+SMALL = {"n_particles": 1 << 15, "resolution": 128, "canvas": [128, 128]}
+SEED = 2 ** 31 + 12345
+
+
+@pytest.mark.parametrize("key", ["check", "snapshot"])
+def test_a_name_with_no_module_fails_with_that_name(key):
+    with pytest.raises(ModuleNotFoundError, match="no_such_module"):
+        harness.run_cell(bench(), "density.export", SEED, 1.0, False,
+                         device="cpu", scale_down=SMALL | {key:
+                                                           "no_such_module"})
+
+
+def test_a_configuration_without_a_check_is_not_judged_as_additive():
+    with pytest.raises(KeyError, match="check"):
+        check.module({"render_mode": "univariate"})
+
+
+def test_a_number_the_check_does_not_give_is_not_correct(monkeypatch):
+    from perfbench.checks import additive
+    full = additive.compare
+    monkeypatch.setattr(additive, "compare", lambda *a: {
+        k: v for k, v in full(*a).items() if k != "rgba_mean_abs"})
+    torch.set_num_threads(4)
+    out = harness.run_cell(bench(), "density.export", SEED, 1.0, False,
+                           device="cpu", scale_down=SMALL)
+    assert out["checked"] > 0
+    assert out["checks"]["rgba_mean_abs"]["value"] is None
+    assert out["checks"]["raw_max_rel"]["value"] is not None
+    assert not out["correct"]
+
+
+# check.run at SMALL and SEED on the commit before the checks moved into
+# checks/ (b4e1b5e), over the first three answers of each cell's traffic
+# rendered by the bfloat16 reference (the control's answers, on four
+# threads): the moved arithmetic gives the same numbers to the last bit
+PARENT_NUMBERS = {
+    "density.export": {"raw_max_rel": 0.2204859248956181,
+                       "rgba_mean_abs": 2.7191975911458335},
+    "surface.interactive": {"depth_off_share": 0.9663865546218487,
+                            "rgba_mean_abs": 0.2755940755208333,
+                            "value_off_share": 0.6160714285714286},
+}
+
+
+@pytest.mark.parametrize("workload", sorted(PARENT_NUMBERS))
+def test_check_numbers_are_the_parents(workload):
+    torch.set_num_threads(4)
+    b = bench()
+    cell = next(w for w in b["workloads"] if w["name"] == workload)
+    entry = next(c for c in b["configs"] if c["name"] == cell["config"])
+    config = json.load(open(os.path.join(ROOT, entry["file"]))) | SMALL
+    plan = traffic.Traffic(harness.load_json("traffic",
+                                             f"{cell['traffic']}.json"), SEED)
+    setup, views = control.traffic_views(config, plan)
+    low = check.module(config).Reference(config, SEED, "cpu", setup,
+                                         dtype=torch.bfloat16)
+    samples = []
+    for i, view in enumerate(views[:3]):
+        raw = low.raw(view)
+        samples.append((i, view, raw.float(), low.frame(raw)))
+    numbers, failed, _ = check.run(config, SEED, "cpu", setup, samples)
+    assert numbers == PARENT_NUMBERS[workload]
+    assert failed == 3
+
+
+PROBE_CONFIG = {
+    "name": "probe", "n_particles": 1 << 12, "particle_mass": 1e-8,
+    "snapshot": "probe_bands", "quantity": "test-quantity",
+    "render_mode": "univariate", "check": "probe_check",
+    "colormap": "twilight_shifted", "resolution": 64, "canvas": [64, 64],
+    "scale": 200.0, "visualizer": {"periodic_tiling": True},
+    "limits": {"probe_raw_max_rel": 1.0, "probe_rgba_mean_abs": 255.0}}
+
+PROBE_SNAPSHOT = '''
+import torch
+from perfbench.snapshots import galaxy
+
+
+def make(config, seed, device):
+    snap = galaxy.make(config, seed, device)
+    m = snap["mass"]
+    snap["rgb"] = torch.stack([m, 2 * m, 3 * m], dim=1)
+    snap["periodicity_scale"] = 100.0
+    return snap
+'''
+
+PROBE_CHECK = '''
+from perfbench.checks import additive
+
+Reference = additive.Reference
+
+
+def compare(raw, raw_ref, frame, frame_ref):
+    got = additive.compare(raw, raw_ref, frame, frame_ref)
+    return {"probe_" + k: v for k, v in got.items()}
+'''
+
+PROBE_RUN = '''
+import json
+import numpy as np
+import torch
+from perfbench import harness
+from topsy_tpu_torch.render.periodic import PeriodicSPHRenderer
+
+torch.set_num_threads(2)
+bench = {"configs": [{"name": "probe", "file": "perfbench/configs/probe.json"}],
+         "workloads": [{"name": "probe.export", "config": "probe",
+                        "traffic": "turntable", "chips": 1}]}
+seen = {}
+
+
+def look(vis):
+    m = vis.data_loader.get_mass()
+    seen["bands"] = bool(np.array_equal(vis.data_loader.get_rgb_masses(),
+                                        np.stack([m, 2 * m, 3 * m], 1)))
+    seen["store_bands"] = bool(np.array_equal(vis.store.rgb.cpu().numpy(),
+                                              np.stack([m, 2 * m, 3 * m], 1)))
+    seen["scale"] = [vis.data_loader.get_periodicity_scale(),
+                     vis.periodicity_scale]
+    seen["periodic"] = isinstance(vis._sph, PeriodicSPHRenderer)
+
+
+out = harness.run_cell(bench, "probe.export", 7, 1.0, False, device="cpu",
+                       fault=look)
+print(json.dumps({"harness": harness.__file__, "seen": seen,
+                  "checked": out["checked"], "checks": out["checks"]}))
+'''
+
+
+def _hashes(root):
+    import hashlib
+    out = {}
+    for d, dirs, files in os.walk(root):
+        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        for f in files:
+            p = os.path.join(d, f)
+            out[os.path.relpath(p, root)] = hashlib.sha256(
+                open(p, "rb").read()).hexdigest()
+    return out
+
+
+def test_a_configuration_made_only_of_new_files_runs(tmp_path):
+    import shutil
+    shutil.copytree(HERE, tmp_path / "perfbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    os.symlink(os.path.join(ROOT, "topsy_tpu_torch"),
+               tmp_path / "topsy_tpu_torch")
+    before = _hashes(tmp_path / "perfbench")
+    added = {"configs/probe.json": json.dumps(PROBE_CONFIG),
+             "snapshots/probe_bands.py": PROBE_SNAPSHOT,
+             "checks/probe_check.py": PROBE_CHECK}
+    assert not set(added) & set(before)
+    for rel, text in added.items():
+        (tmp_path / "perfbench" / rel).write_text(text)
+    p = subprocess.run([sys.executable, "-c", PROBE_RUN], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-4000:]
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    assert got["harness"].startswith(str(tmp_path))
+    assert got["seen"] == {"bands": True, "store_bands": True,
+                           "scale": [100.0, 100.0], "periodic": True}
+    assert got["checked"] > 0
+    assert set(got["checks"]) == set(PROBE_CONFIG["limits"])
+    assert all(isinstance(c["value"], float) for c in got["checks"].values())
+    after = _hashes(tmp_path / "perfbench")
+    assert {k: after[k] for k in before} == before
