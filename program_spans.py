@@ -8,10 +8,16 @@ Drives one cell of ``BENCHMARK.json`` as ``perfbench/run.py`` does (the
 same snapshot, Visualizer, traffic and warm-up) with the port's tracing
 (``performance.set_tracing``) on from the start, and prints one JSON line:
 
-* ``setup``: seconds from the start to the window, and per ``topsy.``
+* ``setup``: seconds from the start to the window, per ``topsy.``
   interval of set-up (``topsy.kernels.load``, ``topsy.presort``,
-  ``topsy.mips``, ``topsy.density_table``, ``topsy.autorange``, ...) its
-  total and self seconds (self: less the intervals inside it);
+  ``topsy.mips``, ``topsy.density_table``, ``topsy.autorange``,
+  ``topsy.bands``, ...) its total and self seconds (self: less the
+  intervals inside it), and ``counters``, ``performance.counters`` at the
+  window's start (``band_bytes_uploaded``: 0 where the bands were
+  adopted);
+* ``setup_bands_s``: the ``topsy.bands`` total of set-up (the bands
+  adopted or uploaded, and their presorted gather), None where no mode
+  read them;
 * ``window``: a ``torch.profiler`` trace of ``--seconds`` of the traffic
   (``performance.start_trace``) reduced by ``reduce_program``: per span a
   frame's host ms, self ms, device ms and device operations, each device
@@ -254,13 +260,12 @@ def _drive(workload: str, seed: int, device, scale_down):
     """The cell's Visualizer as ``perfbench/run.py`` builds it, warmed up,
     and its ``step(i)``: the i-th step of its traffic."""
     import torch
-    from perfbench import harness, reference, traffic
+    from perfbench import check, harness, traffic
     from topsy_tpu_torch.drawreason import DrawReason
     _, config, params = _cell(workload)
     config = config | (scale_down or {})
     plan = traffic.Traffic(params, seed)
-    snap = reference.snapshot(config["n_particles"], seed, device,
-                              mass=config["particle_mass"])
+    snap = check.snapshot(config, seed, device)
     vis = harness.build(config, seed, device, snap)
     vis.rotate(plan.start_turn, 0.0)
     del snap
@@ -297,8 +302,9 @@ def breakdown(workload: str, seed: int, seconds: float, device="cuda",
     if setup_trace:
         performance.start_trace(log_dir)
     vis, plan, step = _drive(workload, seed, device, scale_down)
-    setup = {"s": time.perf_counter() - T_START,
-             "parts": setup_parts(performance.signposter.intervals)}
+    parts = setup_parts(performance.signposter.intervals)
+    setup = {"s": time.perf_counter() - T_START, "parts": parts,
+             "counters": dict(performance.counters)}
     if setup_trace:
         performance.stop_trace()
         setup["trace"] = reduce_program(performance.trace_file(log_dir))
@@ -315,7 +321,9 @@ def breakdown(workload: str, seed: int, seconds: float, device="cuda",
     counts = {k: v - c0.get(k, 0) for k, v in performance.counters.items()}
     window = reduce_program(performance.trace_file(log_dir))
     os.remove(performance.trace_file(log_dir))
-    return {"setup": setup, "steps": steps,
+    return {"setup": setup,
+            "setup_bands_s": parts.get("topsy.bands", {}).get("s"),
+            "steps": steps,
             "draws": performance.signposter.draws - d0, "counters": counts,
             "window": window}
 

@@ -115,10 +115,12 @@ class AbstractDataLoader(ABC):
     def device_arrays(self) -> dict | None:
         """Optional device-resident snapshot for loaders that generate (or
         already hold) their data on the device: ``{'pos_smooth': (n, 4),
-        'mass': (n,), 'quantities': {name: (n,)}}`` float32 tensors.  When
+        'mass': (n,), 'quantities': {name: (n,)}}`` float32 tensors, and
+        optionally ``'rgb'``: (n, 3) band masses (``get_rgb_masses``).  When
         non-None the ParticleStore adopts these tensors in place and never
-        calls the host getters on the hot path.  Default None: the host
-        numpy path."""
+        calls the host getters on the hot path (without ``'rgb'`` it
+        uploads ``get_rgb_masses()`` once, where a mode reads the bands).
+        Default None: the host numpy path."""
         return None
 
 
@@ -270,7 +272,8 @@ def _gmm_density(pos: torch.Tensor) -> torch.Tensor:
 class TestDataDeviceLoader(AbstractDataLoader):
     """TestDataLoader's synthetic snapshot, generated and kept on the
     device (:func:`test_data_device`), through the standard loader contract
-    plus :meth:`device_arrays`, which the ParticleStore adopts in place:
+    plus :meth:`device_arrays` (the band masses of ``get_rgb_masses``
+    included), which the ParticleStore adopts in place:
     the Visualizer's path runs without a snapshot byte crossing from the
     host.  The host getters read back from the device."""
 
@@ -280,8 +283,12 @@ class TestDataDeviceLoader(AbstractDataLoader):
         self._n_particles = int(n_particles)
         ps, mass, qty = test_data_device(self._n_particles, seed=seed,
                                          device=device)
+        p = ps[:, :3]
+        rgb = torch.stack([torch.abs(torch.sin(p[:, 0] / 10.0)),
+                           torch.abs(torch.cos(p[:, 1] / 10.0)),
+                           torch.abs(torch.cos(p[:, 2] / 10.0))], dim=1)
         self._dev = {"pos_smooth": ps, "mass": mass,
-                     "quantities": {"test-quantity": qty}}
+                     "quantities": {"test-quantity": qty}, "rgb": rgb}
 
     def device_arrays(self) -> dict:
         return self._dev
@@ -317,11 +324,7 @@ class TestDataDeviceLoader(AbstractDataLoader):
         return "kpc"
 
     def get_rgb_masses(self):
-        p = self._dev["pos_smooth"]
-        return torch.stack([torch.abs(torch.sin(p[:, 0] / 10.0)),
-                            torch.abs(torch.cos(p[:, 1] / 10.0)),
-                            torch.abs(torch.cos(p[:, 2] / 10.0))],
-                           dim=1).cpu().numpy()
+        return self._dev["rgb"].cpu().numpy()
 
     def get_filename(self):
         return "test data (device)"

@@ -22,7 +22,8 @@ value, and a running ``start_trace`` holds it on) each interval
 
 With tracing off an interval costs one attribute check.  ``counters``
 (name -> count, always on) counts the kernels' launches, the particles
-the renderers hand to the deposit and the presented frames by path.
+the renderers hand to the deposit, the presented frames by path and the
+bytes of bands uploaded.
 """
 
 from __future__ import annotations
@@ -49,9 +50,11 @@ MAX_INTERVALS = 1 << 18
 #: always-on counts: ``k1_launches``, ``k2_launches``, ``k3_launches`` and
 #: ``k3_plan_launches`` (CUDA launches, made only where a kernel is
 #: launched), ``particles_deposited`` (the particles of the blocks the
-#: progression hands a renderer, summed on the host) and
+#: progression hands a renderer, summed on the host),
 #: ``present_device_frames`` / ``present_host_frames`` (presented frames
-#: made on the renderer's device / by the host's float path)
+#: made on the renderer's device / by the host's float path) and
+#: ``band_bytes_uploaded`` (bytes of RGB band masses the store copied from
+#: the host; 0 where it adopts a device loader's bands)
 counters: collections.Counter = collections.Counter()
 
 

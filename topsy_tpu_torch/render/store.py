@@ -3,8 +3,9 @@
 Counterpart of ``topsy_tpu/render/store.py``.  The positions and
 smoothing, masses, quantities and cell ids live on ``device``: a device
 loader's tensors (``loaders.AbstractDataLoader.device_arrays``) are
-adopted in place, a host loader's arrays are uploaded once (a quantity when
-it is selected, the RGB band masses when first read).  The presort is
+adopted in place (its RGB band masses on first read), a host loader's
+arrays are uploaded once (a quantity when it is selected, the band masses
+when first read).  The presort is
 built on the device (``ops.morton_device.build_presorted_device``); the
 host presort (``ops.morton.build_presorted``) runs only where the device
 build returns None.  Every presorted array is a device gather through the
@@ -21,6 +22,7 @@ path renders pieces of ``bucket_size`` rows of them.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 
 import numpy as np
@@ -29,7 +31,7 @@ import torch
 from .. import config, convert
 from ..loaders import AbstractDataLoader
 from ..ops import morton, morton_device, splat_giant
-from ..performance import signposter
+from ..performance import counters, signposter
 
 logger = logging.getLogger(__name__)
 
@@ -66,11 +68,13 @@ class ParticleStore:
             self._mass = self._adopt(dev["mass"])
             self._dev_quantities = {k: self._adopt(v) for k, v in
                                     dev.get("quantities", {}).items()}
+            self._dev_rgb = dev.get("rgb")
         else:
             self.pos_smooth = self._put(data_loader.get_pos_smooth(),
                                         np.float32)
             self._mass = self._put(data_loader.get_mass(), np.float32)
             self._dev_quantities = None
+            self._dev_rgb = None
         self._rgb = None
         cell_ids = data_loader.get_cell_ids()
         if cell_ids is None:
@@ -126,9 +130,23 @@ class ParticleStore:
 
     @property
     def rgb(self) -> torch.Tensor:
-        """(n, 3) band masses of ``loader.get_rgb_masses()``, uploaded once."""
+        """(n, 3) band masses, on first read: a device loader's ``rgb``
+        adopted in place, else ``loader.get_rgb_masses()`` uploaded once
+        (its bytes counted in ``band_bytes_uploaded``)."""
         if self._rgb is None:
-            self._rgb = self._put(self._loader.get_rgb_masses(), np.float32)
+            with signposter.use_interval("topsy.bands"):
+                if self._dev_rgb is not None:
+                    rgb = self._adopt(self._dev_rgb)
+                    if rgb.shape != (self.n, 3):
+                        raise ValueError(f"the loader's rgb is "
+                                         f"{tuple(rgb.shape)}, not "
+                                         f"({self.n}, 3)")
+                    self._rgb = rgb
+                else:
+                    host = np.ascontiguousarray(
+                        self._loader.get_rgb_masses(), np.float32)
+                    self._rgb = self._put(host, np.float32)
+                    counters["band_bytes_uploaded"] += host.nbytes
         return self._rgb
 
     def values_for(self, buffer_name: str) -> torch.Tensor:
@@ -423,8 +441,10 @@ class PresortedMipTier:
         key = (buffer_name, version)
         got = self._values.get(key)
         if got is None:
-            got = convert.presorted_values_cm(
-                self.layout, self._store.values_for(buffer_name))
+            with (signposter.use_interval("topsy.bands")
+                  if buffer_name == "rgb" else contextlib.nullcontext()):
+                got = convert.presorted_values_cm(
+                    self.layout, self._store.values_for(buffer_name))
             self._values = {k: v for k, v in self._values.items()
                             if k[1] == version}
             self._values[key] = got
