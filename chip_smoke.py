@@ -4,8 +4,11 @@
 
 Builds the port's hand-written kernels from this checkout (the CUDA feed
 kernel K1, the CUDA deposit kernel K2 and the CUDA z-buffer kernel K3, into
-build/torch_kernels/; the host presort's native library into
-build/torch_native/), builds the 2^24-particle synthetic snapshot at
+build/torch_kernels/, beside the bilateral filter's kernel; the host
+presort's native library into build/torch_native/), holds the filter
+kernel against its plain version (phase F: the surface cell's 1024^2
+image at kernel size 41 and at the cap's 101 taps, with its time, its
+plain version's and its bound), builds the 2^24-particle synthetic snapshot at
 1024x1024 with the (density, mass * quantity) channels — the scene bench.py
 renders — through ``Visualizer(..., device="cuda")``, whose constructor
 renders the lazy policy's one-shot EXPORT (the per-frame-sorted block
@@ -190,6 +193,22 @@ K2_OPS_PER_HAT_LINE = 3
 # the surface frames: the default density cut (the 50th percentile) and
 # the lowest one, which keeps every particle and covers much of the image
 SURFACE_CUTS = (("cut50", 50.0), ("cut0", 0.0))
+# the bilateral filter's work a tap (csrc/bilateral.cu): one exp on the
+# special-function units, 16 a clock on each of 132 SMs at the 1.98 GHz of
+# the published peaks, and ~10 float32 instructions (the tap's 7 and expf's
+# range reduction) at the float32 pipe's 33.5e12 a second (67e12
+# operations, a fused multiply-add counting 2)
+FILTER_EXP_PER_S = 132 * 16 * 1.98e9
+FILTER_F32_PER_TAP = 10
+# phase F's images: (tag, H, W, C, smoothing scale); the surface cell's
+# 1024^2 (value, depth) at the default scale (kernel size 41) and at the
+# cap (scale 0.03: kernel size 100, 101 taps a row)
+FILTER_CASES = (("surface", 1024, 1024, 2, 0.01), ("cap", 1024, 1024, 2, 0.03))
+# the filtered channel's largest difference from the plain version, over
+# the largest |depth| in the pixel's neighbourhood: the two sum in another
+# order (sequential rows of up to 101 positive terms against PyTorch's
+# reductions), a few float32 roundings of the local scale
+FILTER_RTOL = 1e-6
 # the periodic TestDataLoader's box (loaders.TestDataLoader(periodic=True))
 PERIODICITY = 100.0
 # phase A runs the device kNN at 2^24 only when 2^22's time predicts it
@@ -449,12 +468,14 @@ def ptxas_resources(log_text: str):
                           m.group(1))
             z = re.search(r"zdeposit_class_kernelILi(\d+)ELi(\d+)E",
                           m.group(1))
+            b = "bilateral_kernel" in m.group(1)
             name = (f"feed_kernel<C_IN={f[1]}, DEPTH={f[2]}, "
                     f"RANGED={f[3]}, HAS_MASK={f[4]}>" if f else
                     f"deposit_class_kernel<C={t[1]}, rows={t[2]}, "
                     f"cols={t[3]}>" if t else
                     f"zdeposit_class_kernel<panel rows={z[1]}, cols={z[2]}>"
                     if z else
+                    "bilateral_kernel" if b else
                     re.sub(r".*_cu_\w{8}\d+(\w+?)E.*", r"\1", m.group(1)))
             out.append([name, []])
         elif name and ("spill" in line or "registers" in line):
@@ -1660,7 +1681,8 @@ def phase_catmull(vis, export_image, card):
 #: the launch counters of ``performance.counters``, by kernel
 COUNTERS = {"splat_feed": "k1_launches", "accumulate_groups": "k2_launches",
             "accumulate_max_groups": "k3_launches",
-            "zdeposit_plan": "k3_plan_launches"}
+            "zdeposit_plan": "k3_plan_launches",
+            "bilateral_filter": "filter_launches"}
 
 
 def reset_counts():
@@ -3507,6 +3529,94 @@ def phase_host_shell(vis, dev):
     return launches, summary
 
 
+def filter_image(H, W, C, seed=7):
+    """A surface-like (H, W, C) image on the card: the depth channel (1) a
+    smooth field in [0.1, 0.6] with a sharp step of 0.3 and an uncovered
+    disc of zeros, the others random."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand((H, W, C), generator=g, device="cuda")
+    yy = torch.linspace(0, 1, H, device="cuda")[:, None]
+    xx = torch.linspace(0, 1, W, device="cuda")[None, :]
+    depth = (0.3 + 0.2 * torch.sin(6 * xx) * torch.cos(4 * yy)
+             + 0.01 * torch.randn((H, W), generator=g, device="cuda"))
+    depth = depth + 0.3 * (xx > 0.5)
+    depth = torch.where((xx - 0.3) ** 2 + (yy - 0.7) ** 2 < 0.02, 0.0, depth)
+    img[..., 1] = depth
+    return img
+
+
+def filter_err(out, ref, img, channel, half):
+    """Largest difference of the filtered channel over the largest |value|
+    in the pixel's neighbourhood (edges clamped)."""
+    import torch.nn.functional as F
+    loc = F.max_pool2d(F.pad(img[..., channel].abs()[None, None],
+                             (half,) * 4, mode="replicate"),
+                       2 * half + 1, stride=1)[0, 0]
+    diff = (out[..., channel] - ref[..., channel]).abs()
+    return float((diff / loc.clamp(min=1e-30)).max())
+
+
+def phase_filter():
+    """Phase F: the bilateral filter kernel (``csrc/bilateral.cu``) against
+    its plain version on the card, at the surface cell's image and kernel
+    size and at the cap; the other channels bit-equal, the filtered one
+    within FILTER_RTOL of the local scale.  Returns the kernels line's
+    entry, less the launches the paths count."""
+    import torch
+    from topsy_tpu_torch.ops import smooth
+    from topsy_tpu_torch.performance import counters
+    t_all = time.perf_counter()
+    by_case = {}
+    for tag, H, W, C, scale in FILTER_CASES:
+        img = filter_image(H, W, C)
+        ks = smooth.smoothing_kernel_size(scale * W)
+        args = (img, scale * W, 2.0 * scale, ks)
+        before = counters["filter_launches"]
+        out = smooth.bilateral_filter(*args)
+        ref = smooth.bilateral_filter_plain(*args)
+        torch.cuda.synchronize()
+        check(counters["filter_launches"] == before + 1,
+              f"F {tag}: the filter did not launch its kernel once")
+        check(torch.equal(out[..., 0], img[..., 0]),
+              f"F {tag}: the value channel changed")
+        err = filter_err(out, ref, img, 1, ks // 2)
+        check(err <= FILTER_RTOL, f"F {tag}: filtered depth differs by "
+              f"{err:.3e} of the local scale > {FILTER_RTOL}")
+        ms = timed_ms(lambda: smooth.bilateral_filter(*args), 20)
+        plain_ms = timed_ms(lambda: smooth.bilateral_filter_plain(*args), 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            smooth.bilateral_filter(*args)
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        taps = H * W * (2 * (ks // 2) + 1) ** 2
+        bound_ms, bound_by = max(
+            (taps / FILTER_EXP_PER_S * 1e3, "exp"),
+            (taps * FILTER_F32_PER_TAP / (F32_OPS_PER_S / 2) * 1e3,
+             "float32"))
+        by_case[tag] = {"shape": [H, W, C], "kernel_size": ks,
+                        "max_rel_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "host_us": host_us, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+        log(f"phase F {tag}: ({H}, {W}, {C}) kernel size {ks}: ok; largest "
+            f"difference {err:.3e} of the local scale; kernel {ms:.4f} ms "
+            f"(CUDA events, 20 calls), host {host_us:.1f} us a call; plain "
+            f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of it")
+        del img, out, ref
+    log(f"phase F: {time.perf_counter() - t_all:.1f} s")
+    s = by_case["surface"]
+    return {"name": "bilateral_filter", "route": "cuda",
+            "source": "topsy_tpu_torch/csrc/bilateral.cu",
+            "replaces": None,
+            "max_rel_err": max(c["max_rel_err"] for c in by_case.values()),
+            "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+            "library_ms": None, "host_us": s["host_us"], "by_case": by_case}
+
+
 def _imports(name: str) -> bool:
     import importlib
     try:
@@ -3545,7 +3655,7 @@ def main() -> int:
 
     # ---- phase 2: build the kernels from this checkout ---------------------
     t0 = time.perf_counter()
-    sources = ("splat_feed", "splat_accum", "zsplat_accum")
+    sources = ("splat_feed", "splat_accum", "zsplat_accum", "bilateral")
     for name in sources:
         # built from this checkout's sources, never an earlier build's
         (cuda_build.BUILD_DIR / f"lib{name}.so").unlink(missing_ok=True)
@@ -3558,6 +3668,11 @@ def main() -> int:
         log(f"ptxas K2 {name}: {res}")
     for name, res in ptxas_resources(cuda_build.build_logs["zsplat_accum"]):
         log(f"ptxas K3 {name}: {res}")
+    for name, res in ptxas_resources(cuda_build.build_logs["bilateral"]):
+        log(f"ptxas filter {name}: {res}")
+
+    # ---- phase F: the bilateral filter kernel against its plain version ---
+    fentry = phase_filter()
 
     # ---- phase 3: the scene ------------------------------------------------
     t0 = time.perf_counter()
@@ -3920,18 +4035,22 @@ def main() -> int:
             del main_kw, t2_kw, t3_kw, keys
         log(f"phase S2 {tag}: {time.perf_counter() - t0:.1f} s")
 
-        # ---- S3: the surface EXPORT path
+        # ---- S3: the surface EXPORT path, then its content (one filter)
         reset_counts()
         sframe_ms, swall_ms = export_frame_ms(ssph)
+        t0 = time.perf_counter()
+        content = vis.get_sph_image()          # smoothed on the card
+        content_ms = (time.perf_counter() - t0) * 1e3
         slaunches = read_counts(f"surface EXPORT {tag}",
-                                ("accumulate_max_groups", "zdeposit_plan"))
+                                ("accumulate_max_groups", "zdeposit_plan",
+                                 "bilateral_filter"))
+        check(slaunches["bilateral_filter"] == 1,
+              f"surface EXPORT {tag}: get_sph_image launched the filter "
+              f"{slaunches['bilateral_filter']} times, not once")
         smed = statistics.median(sframe_ms)
         simg = ssph.get_output_image()
         smooth_ms = timed_ms(lambda: smooth_image(simg, 0.01), 3)
         present_ms = timed_ms(lambda: vis.colormap.to_rgba(simg), 3)
-        t0 = time.perf_counter()
-        content = vis.get_sph_image()          # smoothed on the card
-        content_ms = (time.perf_counter() - t0) * 1e3
         log(f"phase S3 {tag} surface EXPORT: {FRAMES} frames, median "
             f"{smed:.3f} ms/frame (CUDA events; host wall median "
             f"{statistics.median(swall_ms):.3f} ms), "
@@ -3940,12 +4059,8 @@ def main() -> int:
             f"{[round(t, 3) for t in sframe_ms]}; bilateral filter "
             f"{smooth_ms:.3f} ms, presentation (filter + lighting) "
             f"{present_ms:.3f} ms, get_sph_image {content_ms:.3f} ms (host "
-            f"wall); launches during the frames {slaunches}")
-        # ---- S3: the surface EXPORT path
-        reset_counts()
-        sframe_ms, swall_ms = export_frame_ms(ssph)
-        slaunches = read_counts(f"surface EXPORT {tag}",
-                                ("accumulate_max_groups", "zdeposit_plan"))
+            f"wall); launches during the frames and get_sph_image "
+            f"{slaunches}")
         check(content.shape == (RESOLUTION, RESOLUTION, 2)
               and np.isfinite(content).all(),
               f"surface get_sph_image {content.shape} not finite")
@@ -4010,9 +4125,11 @@ def main() -> int:
         # SI2: interactive views, each a CHANGE draw then REFINE draws
         reset_counts()
         change_ms, n_frames, drops, tiers_seen = [], [], [], []
+        draws = 0
         for v in range(2 + FRAMES):
             vis.rotate(0.0, 0.05)
             frames = drive_view(vis)
+            draws += len(frames)
             if v >= 2:
                 change_ms.append(frames[0][0])
                 n_frames.append(len(frames))
@@ -4022,7 +4139,10 @@ def main() -> int:
                 f"frames {FRAME_FIELDS} {show_frames(frames)}")
         si_launches[tag] = read_counts(f"interactive surface {tag}",
                                        ("accumulate_max_groups",
-                                        "zdeposit_plan"))
+                                        "zdeposit_plan", "bilateral_filter"))
+        check(si_launches[tag]["bilateral_filter"] == draws,
+              f"interactive surface {tag}: {draws} draws launched the "
+              f"filter {si_launches[tag]['bilateral_filter']} times")
         # SI3: the completed interactive image against EXPORT of the view
         im_i = ssph.get_output_image().clone()
         ssph.invalidate()
@@ -4152,6 +4272,8 @@ def main() -> int:
          "bound_by": k3_bound["cut50_chunk0_main"][1], "library_ms": None,
          "ms_by_shape": k3_ms, "plain_ms_by_shape": k3_plain_ms,
          "bound_ms_by_shape": {k: v[0] for k, v in k3_bound.items()}},
+        {**fentry, "launches": sum(by_path("bilateral_filter").values()),
+         "launches_by_path": by_path("bilateral_filter")},
     ]
     # K2 on the block paths, one entry per path: its launches in the path's
     # run, its calls held and the first call of each shape timed

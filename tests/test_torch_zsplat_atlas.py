@@ -194,10 +194,12 @@ def test_giant_layer_and_smoothing_match_reference():
     img = np.stack([rng.normal(0, 1, (res, res)),
                     np.clip(rng.normal(0.5, 0.2, (res, res)), 0, None)],
                    axis=-1).astype(np.float32)
-    ref = np.asarray(r_smooth.smooth_image(img, 0.05))
-    got = p_smooth.smooth_image(torch.from_numpy(img), 0.05).numpy()
-    assert p_smooth.smoothing_kernel_size(0.05 * res) == \
-        r_smooth.smoothing_kernel_size(0.05 * res)
-    np.testing.assert_array_equal(got[..., 0], img[..., 0])
-    np.testing.assert_allclose(got[..., 1], ref[..., 1], rtol=1e-5,
-                               atol=1e-6)
+    # kernel sizes 2, 6, 13 and the cap's 100
+    for scale in (0.004, 0.02, 0.05, 0.5):
+        ref = np.asarray(r_smooth.smooth_image(img, scale))
+        got = p_smooth.smooth_image(torch.from_numpy(img), scale).numpy()
+        assert p_smooth.smoothing_kernel_size(scale * res) == \
+            r_smooth.smoothing_kernel_size(scale * res)
+        np.testing.assert_array_equal(got[..., 0], img[..., 0])
+        np.testing.assert_allclose(got[..., 1], ref[..., 1], rtol=1e-5,
+                                   atol=1e-6)
