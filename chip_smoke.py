@@ -2307,10 +2307,10 @@ def phase_sorted(vis, export_image, view):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            im = launch(*args)
+            deposit = launch(*args)  # (image, dropped)
             end.record()
             block_ms[-1].append((start, end, args[3]))
-            return im
+            return deposit
 
         sph._launch_block = timed_launch
         frames, held = [], []
@@ -2389,7 +2389,7 @@ def phase_surface_fallback(vis, cut_percentile=50.0):
         fb_ms, _, _ = cuda_ms(lambda: fb.render(DrawReason.EXPORT))
     finally:
         config.INTERACTIVE_USE_PRESORTED = True
-    check(not fb.last_column_ranges and fb._surface_giant_layer is None,
+    check(not fb.last_column_ranges and fb._giant_image is None,
           "L5: the fallback ran the column path")
     raw = fb.get_image()
     cov_c, cov_f = col[..., 1] > 0, raw[..., 1] > 0
@@ -2749,7 +2749,7 @@ def giant_layer_truth(tag, ssph, store):
     import torch
     from topsy_tpu_torch.ops import morton_device, splat
     from topsy_tpu_torch.ops.splat_giant import GIANT_H
-    layer = ssph._surface_giant_layer
+    layer = ssph._giant_image
     check(layer is not None, f"{tag}: the frame drew no giant layer")
     matrix = ssph._matrix().astype(np.float32)
     scale = np.float32(ssph.scale)
@@ -3956,7 +3956,7 @@ def main() -> int:
         struth = zsplat.zsplat_scatter(sps, svals, smatrix, RESOLUTION,
                                        sscale, density_cut=cut,
                                        extra_mask=gmask, level_override=lev)
-        layer = ssph._surface_giant_layer
+        layer = ssph._giant_image
         if layer is not None:
             struth = surface._max_composite(struth, layer)
         struth = struth.cpu().numpy()
@@ -4181,7 +4181,7 @@ def main() -> int:
     zs, size = zoom_out_scale(store, sscale0 + 5.0, 800.0)
     vis.scale = zs
     frames = drive_view(vis)
-    check(ssph._surface_giant_layer is not None, "the interactive surface "
+    check(ssph._giant_image is not None, "the interactive surface "
           "frame drew no giant layer")
     log(f"phase SI4 at scale {zs} ({size} giant candidates): frames "
         f"{FRAME_FIELDS} {show_frames(frames)}")

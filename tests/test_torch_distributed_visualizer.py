@@ -154,8 +154,8 @@ def test_distributed_periodic_interactive_change_frame():
                               periodic_tiling=True, mesh=cpu_mesh())
     sph = v8._sph
     assert isinstance(sph, distributed.DistributedPeriodicSPHRenderer)
-    assert (type(sph)._render_columns_range
-            is distributed.DistributedSPHRenderer._render_columns_range)
+    assert (type(sph)._launch_columns
+            is distributed.DistributedSPHRenderer._launch_columns)
     sph.render(DrawReason.EXPORT)
     v8.rotate(0.3, 0.0)
     sph.render(DrawReason.CHANGE)

@@ -166,8 +166,10 @@ def _ref_ranges(vis, ranges):
 
 def test_column_ranges_match_reference(ref_vis):
     """Columns [0, 128) and then [128, 512), a 384-wide un-merged slice,
-    through both renderers' ``_render_columns_range`` on the same scene:
-    the images at the cross-engine bounds, the dropped counts equal."""
+    through the reference renderer's ``_render_columns_range`` and the
+    port's ``_launch_columns`` (added to the frame by ``_deposit``) on the
+    same scene: the images at the cross-engine bounds, the dropped counts
+    equal."""
     ranges = [(0, 128), (128, 384)]
     im_r, d_r = _ref_ranges(ref_vis, ranges)
     vis = _port()
@@ -176,10 +178,9 @@ def test_column_ranges_match_reference(ref_vis):
     matrix = sph._matrix().astype(np.float32)
     scale = np.float32(sph.scale)
     sph._prepare_giants(matrix, scale)
-    first, d_p = True, []
+    sph._first_deposit, d_p = True, []
     for c0, n in ranges:
-        sph._dropped_splats = None
-        first = sph._render_columns_range(matrix, scale, c0, n, first)
+        sph._deposit(*sph._launch_columns(matrix, scale, c0, n))
         d_p.append(sph.last_dropped_splats)
     assert d_p == d_r
     _cross_engine(sph._image.numpy(), im_r)
@@ -330,3 +331,196 @@ def test_refine_chain_and_prevent_sph_rendering():
     assert sph.last_column_ranges == [(256, 256)]
     assert sph.last_render_mass_scale == pytest.approx(1.0)
     assert vis.last_frame.shape == (480, 640, 4)
+
+
+# ---- the frame loop's conventions, frame kind by frame kind -----------------
+
+def _record_blocks(prog):
+    """Wrap ``prog.get_block`` on the instance: the list it returns gains
+    each block handed out, with the tier it names."""
+    seen = []
+    get_block = prog.get_block
+
+    def spy(t):
+        block = get_block(t)
+        if block is not None:
+            seen.append((block, getattr(prog, "last_block_tier", None)))
+        return block
+
+    prog.get_block = spy
+    return seen
+
+
+def _frame_model(sph, kind, blocks, image, ranges):
+    """The frame rebuilt from the module-level deposits the renderer's
+    launches go through: (output image, dropped, column ranges, particles
+    deposited, mass scale).  ``image`` is the image before the frame (a
+    REFINE frame continues it), ``ranges`` the column ranges before it."""
+    from topsy_tpu_torch.ops import splat_atlas, splat_giant
+    from topsy_tpu_torch.render import surface as p_surface
+    from topsy_tpu_torch.render.store import bucket_size
+    store, prog = sph._store, sph.render_progression
+    surface = isinstance(sph, p_surface.SurfaceSPHRenderer)
+    combine = p_surface._max_composite if surface else torch.add
+    matrix = sph._matrix().astype(np.float32)
+    scale = np.float32(sph.scale)
+    cut = np.float32(sph._density_cut_value()) if surface else None
+    buf = sph._buffer_name
+    selection = prog.get_selected_cell_mask()
+    table = store.cell_mask_table(selection)
+    columns = isinstance(prog, RenderProgressionColumns)
+    if kind != "refine":
+        image = None
+    dropped, deposited = None, 0
+
+    def deposit(im, d, summed):
+        nonlocal image, dropped
+        dropped = dropped + d if summed and dropped is not None else d
+        image = im if image is None else combine(image, im)
+
+    def feed_mask(tier):
+        if selection is None:
+            return None
+        return table[tier.cell_ids.long()].to(torch.float32).reshape(
+            -1, tier.layout.pad_group)
+
+    layer, bucket = None, None
+    if columns or (kind == "export" and not surface):
+        levels = splat_atlas.default_pyramid(RES).num_levels
+        size, bucket = splat_giant.giant_plan(
+            store.giant_meta(), RES, float(sph.scale), levels)
+        if size:
+            cand = store.giant_candidates(size)
+            args = (cand["pos"], store.giant_values_for(buf, size),
+                    cand["buckets"], cand["cell_ids"], table, matrix, scale)
+            layer = (p_surface._render_giant_layer_surface(
+                *args, cut, resolution=RES) if surface else
+                p_sph._render_giant_layer(*args, resolution=RES,
+                                          depth_channel=False))
+    if kind == "export" and not surface:
+        tier = store.main_tier
+        for piece in sph.pieces():
+            deposit(*splat_atlas.splat_atlas_fields(
+                tier.fields(), tier.values_cm_for(buf), matrix, RES, scale,
+                tier.group_buckets, mask=feed_mask(tier),
+                depth_channel=False, piece=piece, giants=bucket), False)
+        deposited = store.n
+    else:
+        ranges = []
+        mips = store.ensure_column_mips() if columns else []
+        for (starts, lens), ti in blocks:
+            for s, n in zip(starts, lens):
+                if n <= 0:
+                    continue
+                if not columns:
+                    deposited += n
+                    b = bucket_size(n, store.n_pad)
+                    for p in range(0, n, b):
+                        flat = (store.flat_pos_smooth,
+                                store.flat_values_for(buf),
+                                store.flat_cell_ids, table, matrix, scale)
+                        kw = dict(resolution=RES, bucket=b)
+                        if surface:
+                            deposit(p_surface._render_block_surface(
+                                *flat, cut, s + p, min(b, n - p), **kw),
+                                None, False)
+                        else:
+                            deposit(*p_sph._render_block(
+                                *flat, s + p, min(b, n - p), **kw,
+                                depth_channel=False, backend="atlas"), False)
+                    continue
+                tier = mips[ti] if ti < len(mips) else store.main_tier
+                ranges.append((s, n))
+                deposited += int(tier.layout.real_per_column[s:s + n].sum())
+                if surface:
+                    culled = selection is not None
+                    deposit(*p_surface._render_block_columns_surface(
+                        tier.pos_smooth, tier.values_for(buf), tier.buckets,
+                        tier.cell_ids if culled else None,
+                        table if culled else None, matrix, scale, cut, s,
+                        int(bucket), resolution=RES, width=n,
+                        pad_group=tier.layout.pad_group), True)
+                else:
+                    deposit(*p_sph._render_block_columns_fields(
+                        tier.fields(), tier.values_cm_for(buf),
+                        tier.group_buckets, feed_mask(tier), matrix, scale,
+                        s, int(bucket), resolution=RES, width=n,
+                        depth_channel=False), True)
+    mass_scale = 1.0 if surface else prog._total / prog._start_index
+    if layer is not None:
+        image = (combine(image, layer) if surface
+                 else image + layer * (1.0 / mass_scale))
+    return (image, 0 if dropped is None else int(dropped), ranges,
+            deposited, mass_scale)
+
+
+@pytest.mark.parametrize("kind", ["export", "change", "refine",
+                                  "block_change", "no_cell"])
+@pytest.mark.parametrize("mode", ["univariate", "surface"])
+def test_frame_loop_conventions(mode, kind, monkeypatch):
+    """Each kind of frame of both render loops against the frame rebuilt
+    from the module-level deposits (``_frame_model``): the output image;
+    ``last_dropped_splats`` and its type (the last piece or block of an
+    EXPORT or block-path frame, the sum over a column frame's launches);
+    ``last_column_ranges`` (an additive EXPORT frame leaves the previous
+    frame's); the ``particles_deposited`` delta; ``last_render_mass_scale``
+    (1 for the surface).  A REFINE frame continues a partial CHANGE frame;
+    ``block_change`` is a CHANGE frame of a fresh Visualizer with
+    ``INTERACTIVE_USE_PRESORTED`` off; ``no_cell`` a CHANGE frame whose
+    view selects no cell.  Each runs zoomed out, where the giant layer
+    runs, and zoomed in, where launches drop splats."""
+    from topsy_tpu_torch.ops import splat_atlas
+    from topsy_tpu_torch.performance import counters
+    from topsy_tpu_torch.render import store as p_store
+    # spill budgets small enough that launches drop splats, and several
+    # launches a frame: EXPORT pieces, EXPORT column blocks, bucket pieces
+    monkeypatch.setattr(config, "SPLAT_SPILL_GROUP_CAP", 1)
+    monkeypatch.setattr(splat_atlas, "T3_CAP", 1)
+    monkeypatch.setattr(splat_atlas, "COLUMN_SPILL_GROUP_CAP", 1)
+    monkeypatch.setattr(splat_atlas, "COLUMN_T3_CAP", 1)
+    monkeypatch.setattr(config, "SPLAT_FEED_LAUNCH_CAP", 4096)
+    monkeypatch.setattr(config, "MAX_PARTICLES_PER_EXPORT_RENDERCALL", 8000)
+    monkeypatch.setattr(p_store, "MAX_BUCKET", 4096)
+    if kind == "block_change":
+        monkeypatch.setattr(config, "INTERACTIVE_USE_PRESORTED", False)
+        monkeypatch.setattr(config, "INITIAL_PARTICLES_TO_RENDER", 6000)
+    for scale in (60.0, 5.0):
+        vis = _port(with_cells=kind == "no_cell")
+        if mode == "surface":
+            vis.render_mode = "surface"
+            vis._sph.set_density_cut_percentile(0.0)  # giants are diffuse
+        sph = vis._sph
+        sph.scale = scale
+        if kind == "refine":
+            _quantum_columns(vis, [128, 384])
+            sph.render(DrawReason.CHANGE)
+            assert sph.needs_refine()
+        elif kind != "block_change":
+            sph.render(DrawReason.CHANGE)
+            assert isinstance(sph.render_progression,
+                              RenderProgressionColumns)
+            sph.rotation_matrix = np.array(
+                [[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [-1.0, 0.0, 0.0]]
+            ) @ np.asarray(sph.rotation_matrix)
+        if kind == "no_cell":
+            sph.position_offset = np.full(3, 1e4)
+        reason = {"export": DrawReason.EXPORT,
+                  "refine": DrawReason.REFINE}.get(kind, DrawReason.CHANGE)
+        blocks = _record_blocks(sph.render_progression)
+        before = None if sph._image is None else sph._image.clone()
+        ranges_before = list(sph.last_column_ranges)
+        n0 = counters["particles_deposited"]
+        sph.render(reason)
+        if kind == "no_cell":
+            assert not sph.render_progression.get_selected_cell_mask().any()
+        want, dropped, ranges, deposited, mass_scale = _frame_model(
+            sph, kind, blocks, before, ranges_before)
+        got = sph.get_output_image()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+        assert type(sph.last_dropped_splats) is int
+        assert sph.last_dropped_splats == dropped
+        assert sph.last_column_ranges == ranges
+        assert counters["particles_deposited"] - n0 == deposited
+        assert sph.last_render_mass_scale == pytest.approx(mass_scale,
+                                                           rel=1e-12)

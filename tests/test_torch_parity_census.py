@@ -120,6 +120,9 @@ DEPARTURES = {
         "_postprocess_frame",
     "render/periodic.py::PeriodicSPHRenderer._get_image_unscaled":
         "the inherited one reads get_output_image, the composite here",
+    "render/surface.py::SurfaceSPHRenderer.render":
+        "SPHRenderer.render is the one frame loop; the surface supplies its "
+        "combine rule, deposits and giant layer as hooks",
 }
 
 

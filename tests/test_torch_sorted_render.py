@@ -268,7 +268,7 @@ def test_surface_fallback_matches_reference(monkeypatch):
     port.render(DrawReason.EXPORT)
     ref.render(RefReason.EXPORT)
     assert port._store.presorted_layout is None
-    assert port._surface_giant_layer is None
+    assert port._giant_image is None
     _surface_bounds(_image(port), _image(ref))
     port.scale = ref.scale = 0.5 * port.scale
     port.render(DrawReason.CHANGE)

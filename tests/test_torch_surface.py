@@ -119,8 +119,8 @@ def test_narrow_column_launch_matches_scatter(monkeypatch):
         ps, store.presorted_values_for("surface_values"), matrix, 64, scale,
         density_cut=np.float32(sph._density_cut_value()), extra_mask=mask,
         level_override=lev)
-    if sph._surface_giant_layer is not None:
-        truth = surface._max_composite(truth, sph._surface_giant_layer)
+    if sph._giant_image is not None:
+        truth = surface._max_composite(truth, sph._giant_image)
     truth = truth.numpy()
     cov = truth[..., 1] > 0
     assert cov.sum() > 20

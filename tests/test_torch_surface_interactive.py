@@ -162,7 +162,7 @@ def test_interactive_frames_match_reference(port, ref, scale):
         ref.render(rr)
         assert port._sph.last_column_ranges == [expect]
         if scale is not None:
-            assert port._sph._surface_giant_layer is not None
+            assert port._sph._giant_image is not None
         _export_bounds(port._sph.get_image(), np.asarray(ref.get_image()))
         assert port._sph.last_dropped_splats == ref.last_dropped_splats
         assert port._sph.needs_refine() == ref.needs_refine()
@@ -187,12 +187,12 @@ def test_giant_layer_kept_across_refine():
     sph.set_density_cut_percentile(0.0)      # giants are diffuse
     _port_quantum(v, [128, 384])
     sph.render(DrawReason.CHANGE)
-    layer, bucket = sph._surface_giant_layer, sph._giant_bucket
+    layer, bucket = sph._giant_image, sph._giant_bucket
     assert layer is not None and (layer[..., 1] > 0).any()
     image = sph.get_output_image()
     assert torch.equal(_max_composite(image, layer), image)
     sph.render(DrawReason.REFINE)
-    assert sph._surface_giant_layer is layer and sph._giant_bucket == bucket
+    assert sph._giant_image is layer and sph._giant_bucket == bucket
     assert sph.last_column_ranges == [(128, 384)]
     assert not sph.needs_refine()
 
@@ -225,7 +225,7 @@ def test_refine_chain_and_deferred_timing(monkeypatch):
     fresh.render(DrawReason.CHANGE)
     assert not fresh.last_column_ranges and fresh._pending_timing_prog is None
     assert fresh._render_timer.last_duration > 0.0
-    assert fresh._surface_giant_layer is None
+    assert fresh._giant_image is None
     assert (fresh.get_image()[..., 1] > 0).any()
 
 

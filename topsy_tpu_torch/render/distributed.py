@@ -1,13 +1,15 @@
 """The renderers over a particle mesh.
 
-Counterpart of ``topsy_tpu/render/distributed.py``: the standard render
-loops of ``render/sph.py``, ``render/surface.py`` and
-``render/periodic.py`` with every splat launch made by a
-``parallel.DistributedSplatter`` over the mesh (pass ``mesh=`` to the
-Visualizer).  LOD blocks, cell culling, the giant layer, quantity switching
-and the photometric scale behave as on one device; each EXPORT, column or
-block launch is split over the shards and their partial framebuffers are
-combined on the mesh's first device, which is the store's.  The lazy
+Counterpart of ``topsy_tpu/render/distributed.py``: the frame loop of
+``render/sph.py`` with the renderers of ``render/sph.py``,
+``render/surface.py`` and ``render/periodic.py``, every splat launch made
+by a ``parallel.DistributedSplatter`` over the mesh (pass ``mesh=`` to the
+Visualizer): the mesh overrides only the deposit hooks and the column
+path's layouts.  LOD blocks, cell culling, the giant layer, quantity
+switching and the photometric scale behave as on one device; each EXPORT,
+column or block launch is split over the shards and their partial
+framebuffers are combined on the mesh's first device, which is the
+store's.  The lazy
 EXPORT policy is the single device's: a first EXPORT without slabs renders
 the strided block path (``DistributedSplatter.render``), later ones the
 presorted slabs.  Two degradations are logged, as in the reference: a
@@ -18,18 +20,15 @@ column path renders on the store's device alone.
 
 from __future__ import annotations
 
-import copy
 import logging
 
 import torch
 
-from .. import config
-from ..drawreason import DrawReason
 from ..parallel.render_step import DistributedSplatter
 from .periodic import PeriodicSPHRenderer
 from .sph import SPHRenderer
 from .store import ParticleStore
-from .surface import SurfaceSPHRenderer, _max_composite
+from .surface import SurfaceSPHRenderer
 
 logger = logging.getLogger(__name__)
 
@@ -65,7 +64,6 @@ class MeshSplatterMixin:
         self._mesh = mesh
         self._splatter = None
         self._splatter_version = None
-        self._column_mip_count = 0
 
     def _get_splatter(self) -> DistributedSplatter:
         version = (self._buffer_name, self._store.values_version)
@@ -78,51 +76,24 @@ class MeshSplatterMixin:
             self._splatter_version = version
         return self._splatter
 
-    def _maybe_activate_columns(self, draw_reason) -> bool:
-        """Column LOD over the mesh: each shard renders the column range of
-        its slab (the within-group shuffle is per layout, so the union of
-        the shards' columns is the same fair subsample as one device's),
-        with the mesh's decimation-mip tiers."""
-        from ..ops.morton import min_slice_width
-        from ..progression import RenderProgressionColumns
-        if isinstance(self._render_progression, RenderProgressionColumns):
-            return True
-        if draw_reason in (DrawReason.REFINE, DrawReason.EXPORT):
-            return False
-        if self._backend != "atlas" or not config.INTERACTIVE_USE_PRESORTED:
-            return False
+    def _column_layouts(self):
+        """The mesh's column path: its splatter's main layout and mip
+        layouts (each shard renders the column range of its slab; the
+        within-group shuffle is per layout, so the union of the shards'
+        columns is the same fair subsample as one device's); (None, []),
+        with a warning, for a splatter that kept no rows to presort."""
         splatter = self._get_splatter()
         if not splatter.supports_presorted():
             splatter._warn_presorted_unavailable(
                 "interactive sort-free column LOD")
-            return False
-        layout = splatter.presorted_layout
-        if layout is None or layout.real_per_column is None:
-            return False
-        mips = splatter.presorted_mip_layouts()
-        self._column_mip_count = len(mips)
-        self._render_progression = RenderProgressionColumns(
-            layout.real_per_column,
-            cell_layout=getattr(self._render_progression, "cell_layout", None),
-            col_quantum=min_slice_width(layout),
-            mip_tiers=[(m.real_per_column, min_slice_width(m))
-                       for m in mips])
-        return True
-
-    def _block_particles(self, col0: int, ncols: int) -> int:
-        """The real particles in columns [col0, col0 + ncols) of the mesh's
-        tier of the progression's last block."""
-        splatter = self._get_splatter()
-        ti = self._column_tier()
-        layout = (splatter.presorted_layout if ti is None
-                  else splatter.presorted_mip_layouts()[ti])
-        return int(layout.real_per_column[col0:col0 + ncols].sum())
+            return None, []
+        return splatter.presorted_layout, splatter.presorted_mip_layouts()
 
     def _column_tier(self):
         """The splatter's tier of the progression's last block (None = the
         main layout)."""
         ti = self._render_progression.last_block_tier
-        return ti if ti < self._column_mip_count else None
+        return ti if ti < len(self._column_layouts()[1]) else None
 
 
 class DistributedSPHRenderer(MeshSplatterMixin, SPHRenderer):
@@ -141,61 +112,35 @@ class DistributedSPHRenderer(MeshSplatterMixin, SPHRenderer):
             return True
         return self._export_renders >= 1
 
-    def _render_presorted(self, matrix, scale, first_block: bool):
+    def _render_presorted(self, matrix, scale) -> list:
         """The single device's contract: the frame's exact giant layer
-        planned and rendered once, the giants excluded from every shard's
-        slab deposit."""
+        planned and rendered once, then one launch over the mesh's slabs
+        with the giants excluded from every shard's deposit."""
         splatter = self._get_splatter()
         mask = self._render_progression.get_selected_cell_mask()
-        self._prepare_giants(matrix, scale, keep=False)
-        with self._render_timer:
-            im, dropped = splatter.render_presorted(
-                matrix, scale, cell_mask=mask,
-                giant_bucket=self._giant_bucket)
-            self._dropped_splats = dropped
-            self._image = im if first_block else self._image + im
+        self._prepare_giants(matrix, scale)
+        return [lambda: splatter.render_presorted(
+            matrix, scale, cell_mask=mask, giant_bucket=self._giant_bucket)]
 
     def _launch_block(self, matrix, scale, start: int, count: int,
-                      bucket: int) -> torch.Tensor:
+                      bucket: int):
         mask = self._render_progression.get_selected_cell_mask()
         return self._get_splatter().render(matrix, scale, start, count,
-                                           cell_mask=mask)
+                                           cell_mask=mask), None
 
-    def _render_columns_range(self, matrix, scale, col0: int, ncols: int,
-                              first_block: bool) -> bool:
+    def _launch_columns(self, matrix, scale, col0: int, ncols: int):
         """One column launch over the mesh for the progression's tier, the
         view's giants excluded (the render loop planned their layer)."""
-        splatter = self._get_splatter()
         mask = self._render_progression.get_selected_cell_mask()
-        with self._render_timer:
-            im, dropped = splatter.render_columns(
-                matrix, scale, col0, ncols, cell_mask=mask,
-                tier=self._column_tier(), giant_bucket=self._giant_bucket)
-            self.last_column_ranges.append((col0, ncols))
-            self._dropped_splats = (dropped if self._dropped_splats is None
-                                    else self._dropped_splats + dropped)
-            if first_block:
-                self._image = im
-                first_block = False
-            else:
-                self._image = self._image + im
-        return first_block
+        return self._get_splatter().render_columns(
+            matrix, scale, col0, ncols, cell_mask=mask,
+            tier=self._column_tier(), giant_bucket=self._giant_bucket)
 
-    def _get_depth_renderer(self):
-        """The cached depth renderer over the same mesh (a fresh one per
-        pick would rebuild its splatter's slabs)."""
-        r = getattr(self, "_depth_renderer", None)
-        if r is None:
-            r = DistributedDepthSPHRenderer(
-                self._store, None, self._resolution, self._mesh,
-                wrapping=self._wrapping, backend=self._backend,
-                share_render_progression=copy.copy(self._render_progression))
-            self._depth_renderer = r
-        r._render_progression = copy.copy(self._render_progression)
-        r.rotation_matrix = self.rotation_matrix
-        r.position_offset = self.position_offset
-        r.scale = self.scale
-        return r
+    def _new_depth_renderer(self, **kw):
+        """The depth renderer over the same mesh (a fresh one per pick
+        would rebuild its splatter's slabs)."""
+        return DistributedDepthSPHRenderer(self._store, None,
+                                           self._resolution, self._mesh, **kw)
 
 
 class DistributedRGBSPHRenderer(DistributedSPHRenderer):
@@ -214,29 +159,17 @@ class DistributedSurfaceSPHRenderer(MeshSplatterMixin, SurfaceSPHRenderer):
     alone, with a warning."""
 
     def _maybe_activate_columns(self, draw_reason) -> bool:
-        ok = MeshSplatterMixin._maybe_activate_columns(self, draw_reason)
+        ok = super()._maybe_activate_columns(draw_reason)
         if not ok:
             logger.warning("distributed surface mode needs the presorted "
                            "column path; rendering on one device")
         return ok
 
-    def _render_columns_surface(self, matrix, scale, cut, col0: int,
-                                ncols: int, first_block: bool) -> bool:
-        splatter = self._get_splatter()
+    def _launch_columns(self, matrix, scale, cut, col0: int, ncols: int):
         mask = self._render_progression.get_selected_cell_mask()
-        with self._render_timer:
-            im, dropped = splatter.render_columns_surface(
-                matrix, scale, cut, col0, ncols, cell_mask=mask,
-                tier=self._column_tier(), giant_bucket=self._giant_bucket)
-            self.last_column_ranges.append((col0, ncols))
-            self._dropped_splats = (dropped if self._dropped_splats is None
-                                    else self._dropped_splats + dropped)
-            if first_block:
-                self._image = im
-                first_block = False
-            else:
-                self._image = _max_composite(self._image, im)
-        return first_block
+        return self._get_splatter().render_columns_surface(
+            matrix, scale, cut, col0, ncols, cell_mask=mask,
+            tier=self._column_tier(), giant_bucket=self._giant_bucket)
 
 
 class DistributedPeriodicSPHRenderer(PeriodicSPHRenderer,

@@ -1,4 +1,4 @@
-"""The SPH renderers: the EXPORT and interactive render loops.
+"""The SPH renderers and the frame loop of every renderer.
 
 Counterpart of ``SPHRenderer``, ``RGBSPHRenderer`` (the three band masses,
 C = 3) and ``DepthSPHRenderer`` (a mass-weighted clip-depth channel, the
@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import copy
 import logging
+import operator
 
 import numpy as np
 import torch
@@ -136,10 +137,26 @@ def _render_block_columns_fields(fields, values_cm, group_buckets, mask,
 
 
 class SPHRenderer:
-    """Density / mass-weighted-quantity renderer (2 channels)."""
+    """Density / mass-weighted-quantity renderer (2 channels).
+
+    ``render`` is the frame loop of every renderer; a subclass supplies the
+    per-mode parts: the class attributes below, the frame's view
+    (``_view``), the deposits (``_launch_columns``, ``_launch_block``,
+    ``_render_presorted``), the giant layer (``_giant_layer``) and the
+    column path's layouts (``_column_layouts``)."""
 
     _buffer_name = "mass_and_quantity"
     _depth_channel = False
+    #: how two deposits of one frame combine into its image
+    _combine = staticmethod(operator.add)
+    #: whether EXPORT frames take the column path
+    _export_columns = False
+    #: whether a partial frame is scaled by the progression's photometric
+    #: mass factor
+    _mass_scaled = True
+    #: whether the giant layer is combined into the image after every frame
+    #: rather than folded in by ``get_output_image``
+    _giants_in_image = False
 
     def __init__(self, store: ParticleStore, render_progression,
                  resolution: int, wrapping: bool = False,
@@ -175,6 +192,7 @@ class SPHRenderer:
         self._giant_image = None
         self._giant_bucket = None
         self._dropped_splats = None
+        self._first_deposit = True
         self._cell_table = store.cell_mask_table(None)
         self._cell_table_generation = None
         self._fields_masks = {}
@@ -205,7 +223,7 @@ class SPHRenderer:
     def get_output_image(self) -> torch.Tensor:
         """The raw framebuffer (device tensor), the exact giant layer folded
         in divided by the mass scale factor."""
-        if self._giant_image is None:
+        if self._giant_image is None or self._giants_in_image:
             return self._image
         ms = self.last_render_mass_scale
         return self._image + self._giant_image * (1.0 / ms if ms > 0 else 1.0)
@@ -238,21 +256,22 @@ class SPHRenderer:
         return (depth_viewport - 0.5) * self.scale * 2.0
 
     def _get_depth_renderer(self) -> "DepthSPHRenderer":
-        """The cached depth renderer over the same store and resolution,
-        given a copy of this renderer's progression and its view."""
+        """The cached depth renderer over the same store and resolution
+        (``_new_depth_renderer``), given a copy of this renderer's
+        progression and its view."""
         r = getattr(self, "_depth_renderer", None)
         if r is None:
-            r = DepthSPHRenderer(self._store, None, self._resolution,
-                                 wrapping=self._wrapping,
-                                 backend=self._backend,
-                                 share_render_progression=copy.copy(
-                                     self._render_progression))
-            self._depth_renderer = r
+            r = self._depth_renderer = self._new_depth_renderer(
+                wrapping=self._wrapping, backend=self._backend,
+                share_render_progression=copy.copy(self._render_progression))
         r._render_progression = copy.copy(self._render_progression)
         r.rotation_matrix = self.rotation_matrix
         r.position_offset = self.position_offset
         r.scale = self.scale
         return r
+
+    def _new_depth_renderer(self, **kw) -> "DepthSPHRenderer":
+        return DepthSPHRenderer(self._store, None, self._resolution, **kw)
 
     # -- render loop -------------------------------------------------------------
 
@@ -260,32 +279,38 @@ class SPHRenderer:
     def render(self, draw_reason=DrawReason.CHANGE):
         if draw_reason == DrawReason.PRESENTATION_CHANGE:
             return
-        columns = self._maybe_activate_columns(draw_reason)
+        export = draw_reason == DrawReason.EXPORT
+        columns = self._maybe_activate_columns(
+            DrawReason.CHANGE if export and self._export_columns
+            else draw_reason)
         prog = self._render_progression
         if draw_reason != DrawReason.REFINE:
             prog.select_sphere(-np.asarray(self.position_offset),
                                self.scale * 1.2)
             self._refresh_cell_table()
 
-        matrix = self._matrix().astype(np.float32)
-        scale = np.float32(self.scale)
+        view = self._view()
         # a measurement the previous frame left pending is stale now
         self._discard_pending_timing()
         self._frame_clock.start()
         prog.start_frame(draw_reason)
-        # the first block starts the image unless a REFINE frame continues it
-        first_block = draw_reason != DrawReason.REFINE or self._image is None
+        # the first deposit starts the image unless a REFINE frame
+        # continues it
+        self._first_deposit = (draw_reason != DrawReason.REFINE
+                               or self._image is None)
         # column frames run barrier-free with deferred timing; frames of the
         # block path wait for the device after every block, so that the
         # scheduler's feedback is device time; EXPORT frames never wait
-        defer_timing = columns and draw_reason != DrawReason.EXPORT
-        sync_blocks = draw_reason != DrawReason.EXPORT and not defer_timing
+        defer_timing = columns and not export
+        sync_blocks = not export and not defer_timing
 
-        if draw_reason == DrawReason.EXPORT:
+        if export and not self._export_columns:
             use_presorted = self._use_presorted()
             self._export_renders += 1
             if use_presorted:
-                self._render_presorted(matrix, scale, first_block=True)
+                for launch in self._render_presorted(*view):
+                    with self._render_timer:
+                        self._deposit(*launch())
                 counters["particles_deposited"] += self._store.n
                 prog.mark_all_rendered(
                     self._render_timer.total_time_in_frame())
@@ -294,9 +319,10 @@ class SPHRenderer:
 
         if columns:
             # the view's giant layer is planned once and kept across REFINE
-            self._prepare_giants(matrix, scale, keep=not first_block)
+            self._prepare_giants(*view, keep=not self._first_deposit)
         elif draw_reason != DrawReason.REFINE:
-            # the block path selects giants inside each block
+            # the block path has no giant layer: the sorted splat selects
+            # giants inside each block, the surface's scatter keeps them
             self._giant_image = None
             self._giant_bucket = None
         self._dropped_splats = None
@@ -309,27 +335,44 @@ class SPHRenderer:
                 if columns:
                     counters["particles_deposited"] += \
                         self._block_particles(s, l)
-                    first_block = self._render_columns_range(
-                        matrix, scale, s, l, first_block)
+                    with self._render_timer:
+                        self._deposit(*self._launch_columns(*view, s, l),
+                                      summed=True)
+                    self.last_column_ranges.append((s, l))
                     continue
                 counters["particles_deposited"] += l
                 bucket = bucket_size(l, self._store.n_pad)
                 # a block larger than a bucket renders in bucket pieces
                 for piece in range(0, l, bucket):
                     with self._render_timer:
-                        im = self._launch_block(matrix, scale, s + piece,
-                                                min(bucket, l - piece),
-                                                bucket)
-                        if first_block:
-                            self._image = im
-                            first_block = False
-                        else:
-                            self._image = self._image + im
+                        self._deposit(*self._launch_block(
+                            *view, s + piece, min(bucket, l - piece),
+                            bucket))
                     if sync_blocks:
                         self._render_timer.sync(self._image)
             prog.end_block(self._render_timer.total_time_in_frame())
+        layer = self._giant_image
+        if self._giants_in_image and layer is not None:
+            # max is idempotent: combining the layer again after every
+            # REFINE continuation keeps the giants exact
+            with self._render_timer:
+                self._image = (layer if self._image is None
+                               else self._combine(self._image, layer))
         self._finish_frame(prog, record_timing=sync_blocks,
                            defer_timing=defer_timing)
+
+    def _deposit(self, image, dropped, summed: bool = False):
+        """Add one launch's (image, dropped) to the frame: the frame's
+        first deposit starts its image, later ones combine into it
+        (``_combine``).  The frame's dropped count is the sum over its
+        launches where ``summed`` (column frames), else the last launch's
+        (EXPORT and block-path frames, as in the reference)."""
+        if summed and self._dropped_splats is not None:
+            dropped = self._dropped_splats + dropped
+        self._dropped_splats = dropped
+        self._image = (image if self._first_deposit
+                       else self._combine(self._image, image))
+        self._first_deposit = False
 
     def _finish_frame(self, prog, record_timing: bool = False,
                       defer_timing: bool = False):
@@ -345,10 +388,10 @@ class SPHRenderer:
         self._render_timer.end_frame(record=record_timing)
         if defer_timing:
             self._pending_timing_prog = prog
-            self.last_render_mass_scale = prog.end_frame_get_scalefactor(
-                defer_adapt=True)
+            mass_scale = prog.end_frame_get_scalefactor(defer_adapt=True)
         else:
-            self.last_render_mass_scale = prog.end_frame_get_scalefactor()
+            mass_scale = prog.end_frame_get_scalefactor()
+        self.last_render_mass_scale = mass_scale if self._mass_scaled else 1.0
         mean = self._render_timer.running_mean_duration
         self.last_render_fps = 1.0 / mean if mean > 0 else 0.0
         self.has_rendered = True
@@ -393,11 +436,10 @@ class SPHRenderer:
 
     def _maybe_activate_columns(self, draw_reason) -> bool:
         """Switch the progression to sort-free column LOD
-        (``RenderProgressionColumns``) over the presorted layout and its
-        decimation-mip tiers (``store.ensure_column_mips``; none for small
-        snapshots or the host fallback), once per renderer; a REFINE or
-        EXPORT frame never switches.  Returns whether the columns
-        progression is active."""
+        (``RenderProgressionColumns``) over the column path's layouts
+        (``_column_layouts``), once per renderer; a REFINE or EXPORT frame
+        never switches.  Returns whether the columns progression is
+        active."""
         from ..ops.morton import min_slice_width
         from ..progression import RenderProgressionColumns
         if isinstance(self._render_progression, RenderProgressionColumns):
@@ -406,19 +448,34 @@ class SPHRenderer:
             return False
         if self._backend != "atlas" or not config.INTERACTIVE_USE_PRESORTED:
             return False
-        store = self._store
-        store.ensure_presorted()
-        layout = store.presorted_layout
-        if layout.real_per_column is None:
-            return False  # layout without safe column slicing
-        mips = store.ensure_column_mips()
+        layout, mips = self._column_layouts()
+        if layout is None or layout.real_per_column is None:
+            return False  # no layout, or one without safe column slicing
         self._render_progression = RenderProgressionColumns(
             layout.real_per_column,
             cell_layout=getattr(self._render_progression, "cell_layout", None),
             col_quantum=min_slice_width(layout),
-            mip_tiers=[(m.layout.real_per_column, min_slice_width(m.layout))
+            mip_tiers=[(m.real_per_column, min_slice_width(m))
                        for m in mips])
         return True
+
+    def _column_layouts(self):
+        """(main layout, decimation-mip layouts deepest first) of the
+        column path: the store's presort and its tiers
+        (``store.ensure_column_mips``; none for small snapshots or the host
+        fallback)."""
+        store = self._store
+        store.ensure_presorted()
+        return (store.presorted_layout,
+                [m.layout for m in store.ensure_column_mips()])
+
+    def _block_particles(self, col0: int, ncols: int) -> int:
+        """The real particles in columns [col0, col0 + ncols) of the tier
+        the progression's last block names."""
+        layout, mips = self._column_layouts()
+        i = self._render_progression.last_block_tier
+        rpc = (mips[i] if i < len(mips) else layout).real_per_column
+        return int(rpc[col0:col0 + ncols].sum())
 
     def _block_tier(self):
         """The tier (``store.PresortedMipTier``) the progression's last
@@ -427,12 +484,11 @@ class SPHRenderer:
         i = self._render_progression.last_block_tier
         return mips[i] if i < len(mips) else self._store.main_tier
 
-    def _prepare_giants(self, matrix, scale, keep: bool = False):
+    def _prepare_giants(self, *view, keep: bool = False):
         """Per-view giant planning: sets the exclusion bucket threshold of
-        every windowed launch and the exact dense giant layer (or None), a
-        framebuffer of its own that ``get_output_image`` folds in divided by
-        the mass scale.  ``keep`` (a REFINE continuation, same view) reuses
-        the plan and the layer."""
+        every windowed launch and the exact dense giant layer
+        (``_giant_layer``, or None).  ``keep`` (a REFINE continuation, same
+        view) reuses the plan and the layer."""
         if keep and self._giant_bucket is not None:
             return
         with signposter.use_interval("topsy.giants"):
@@ -448,12 +504,18 @@ class SPHRenderer:
                 return
             with self._render_timer:
                 cand = store.giant_candidates(size)
-                self._giant_image = _render_giant_layer(
-                    cand["pos"],
-                    store.giant_values_for(self._buffer_name, size),
-                    cand["buckets"], cand["cell_ids"], self._cell_table,
-                    matrix, scale, resolution=self._resolution,
-                    depth_channel=self._depth_channel)
+                self._giant_image = self._giant_layer(
+                    cand, store.giant_values_for(self._buffer_name, size),
+                    *view)
+
+    def _giant_layer(self, cand, values, matrix, scale):
+        """The exact dense giant layer of the candidates ``cand``
+        (``store.giant_candidates``): a framebuffer of its own that
+        ``get_output_image`` folds in divided by the mass scale."""
+        return _render_giant_layer(
+            cand["pos"], values, cand["buckets"], cand["cell_ids"],
+            self._cell_table, matrix, scale, resolution=self._resolution,
+            depth_channel=self._depth_channel)
 
     def _use_presorted(self) -> bool:
         """Whether an EXPORT frame renders the presort: once a layout is
@@ -467,55 +529,46 @@ class SPHRenderer:
             return True
         return self._export_renders >= 1
 
-    def _render_presorted(self, matrix, scale, first_block: bool):
+    def _render_presorted(self, matrix, scale) -> list:
+        """The launches of a sort-free EXPORT frame, each returning (image,
+        dropped): the view's giant layer is planned first, then the piece
+        loop over group offsets.  Each piece launch has its own spill
+        budget, so the piecing decides ``dropped`` as in the reference."""
         self._store.ensure_presorted()
         self._prepare_giants(matrix, scale)
-        self._render_presorted_fields(matrix, scale, first_block)
+        tier = self._store.main_tier
+        fields = tier.fields()
+        values_cm = tier.values_cm_for(self._buffer_name)
+        mask = self._feed_cull_mask(tier)
+        return [lambda piece=piece: splat_atlas.splat_atlas_fields(
+                    fields, values_cm, matrix, self._resolution, scale,
+                    tier.group_buckets, mask=mask,
+                    depth_channel=self._depth_channel, piece=piece,
+                    giants=self._giant_bucket)
+                for piece in self.pieces()]
 
     def _launch_block(self, matrix, scale, start: int, count: int,
-                      bucket: int) -> torch.Tensor:
+                      bucket: int):
         """Rows [start, start + count) of the store's flat arrays into a
-        fresh image (``_render_block``); the block's dropped count becomes
-        the frame's, as in the reference."""
+        fresh image (``_render_block``): (image, dropped)."""
         store = self._store
-        im, dropped = _render_block(
+        return _render_block(
             store.flat_pos_smooth, store.flat_values_for(self._buffer_name),
             store.flat_cell_ids, self._cell_table, matrix, scale, start,
             count, resolution=self._resolution, bucket=bucket,
             depth_channel=self._depth_channel, backend=self._backend)
-        self._dropped_splats = dropped
-        return im
 
-    def _block_particles(self, col0: int, ncols: int) -> int:
-        """The real particles in columns [col0, col0 + ncols) of the tier
-        the progression's last block names."""
-        rpc = self._block_tier().layout.real_per_column
-        return int(rpc[col0:col0 + ncols].sum())
-
-    def _render_columns_range(self, matrix, scale, col0: int, ncols: int,
-                              first_block: bool) -> bool:
+    def _launch_columns(self, matrix, scale, col0: int, ncols: int):
         """Columns [col0, col0 + ncols) of the presorted matrices of the
         tier the progression's ``last_block_tier`` names (a decimation mip,
-        or the main layout) in one launch (``_render_block_columns_fields``),
-        added to the frame's image and its dropped count (summed on the
-        device).  Returns the updated ``first_block``."""
+        or the main layout) in one launch
+        (``_render_block_columns_fields``): (image, dropped)."""
         tier = self._block_tier()
-        with self._render_timer:
-            im, dropped = _render_block_columns_fields(
-                tier.fields(), tier.values_cm_for(self._buffer_name),
-                tier.group_buckets, self._feed_cull_mask(tier), matrix,
-                scale, col0, int(self._giant_bucket),
-                resolution=self._resolution, width=ncols,
-                depth_channel=self._depth_channel)
-            self.last_column_ranges.append((col0, ncols))
-            self._dropped_splats = (dropped if self._dropped_splats is None
-                                    else self._dropped_splats + dropped)
-            if first_block:
-                self._image = im
-                first_block = False
-            else:
-                self._image = self._image + im
-        return first_block
+        return _render_block_columns_fields(
+            tier.fields(), tier.values_cm_for(self._buffer_name),
+            tier.group_buckets, self._feed_cull_mask(tier), matrix, scale,
+            col0, int(self._giant_bucket), resolution=self._resolution,
+            width=ncols, depth_channel=self._depth_channel)
 
     def _feed_cull_mask(self, tier):
         """(n_groups, pad_group) f32 cull mask of ``tier``
@@ -549,34 +602,18 @@ class SPHRenderer:
             return [None]
         return [(g0, min(piece_g, ng - g0)) for g0 in range(0, ng, piece_g)]
 
-    def _render_presorted_fields(self, matrix, scale, first_block: bool):
-        """Sort-free EXPORT: the piece loop over group offsets.  Each piece
-        launch has its own spill budget, so the piecing decides ``dropped``
-        as in the reference."""
-        tier = self._store.main_tier
-        fields = tier.fields()
-        values_cm = tier.values_cm_for(self._buffer_name)
-        mask = self._feed_cull_mask(tier)
-        for piece in self.pieces():
-            with self._render_timer:
-                im, dropped = splat_atlas.splat_atlas_fields(
-                    fields, values_cm, matrix, self._resolution, scale,
-                    tier.group_buckets, mask=mask, depth_channel=self._depth_channel,
-                    piece=piece, giants=self._giant_bucket)
-                self._dropped_splats = dropped
-                if first_block:
-                    self._image = im
-                    first_block = False
-                else:
-                    self._image = self._image + im
-
     @property
     def last_dropped_splats(self) -> int:
         """Splats dropped by the bounded spill tiers: in the last piece or
         block of an EXPORT or block-path frame (as in the reference), summed
         over the launches of a column frame."""
         d = self._dropped_splats
-        return 0 if d is None else int(d.item())
+        return 0 if d is None else int(d)
+
+    def _view(self) -> tuple:
+        """The frame's view, the leading arguments of every deposit: the
+        float32 world-to-clip matrix and scale."""
+        return self._matrix().astype(np.float32), np.float32(self.scale)
 
     def _matrix(self) -> np.ndarray:
         return world_to_clip_matrix(self.rotation_matrix, self.position_offset,

@@ -4,23 +4,26 @@ Counterpart of ``SurfaceSPHRenderer`` in ``topsy_tpu/render/surface.py``
 over the column path of the store's presort and its decimation-mip tiers:
 particles above a density-percentile cut render as hemispheres with a
 greater-compare depth test; the output channels are (quantity value,
-surface depth).  Every frame activates the columns progression (as the
-reference does even for EXPORT), plans the exact dense giant layer once per
-view, and renders each column range of the tier its block names in one
-launch through ``zsplat_atlas`` in group-axis chunks of at most
-``config.SPLAT_COLUMNS_GROUP_CAP`` groups, combined by max-compositing.
-EXPORT renders every particle once (each tier's own columns).  CHANGE and REFINE frames (the interactive
-surface) render the progression's ranges barrier-free with deferred timing
-(the frame clock, as ``render/sph.py``); a REFINE frame continues the image
-and keeps the view's giant plan, and the giant layer is composited again
-after every frame (max is idempotent).  The photometric mass scale is
-unity.  Without the column progression (``config.INTERACTIVE_USE_PRESORTED``
-off, a layout without column slicing, or ``backend="scatter"``) every frame
-renders the snapshot's flat arrays in ``bucket_size`` pieces through
-``zsplat.zsplat_scatter`` (``_render_block_surface``, the reference's
-scatter fallback, which keeps the truncated giants), combined by
-max-compositing, with a device barrier after every piece of an
-interactive frame (``sync_blocks``).
+surface depth).  The frames are ``SPHRenderer.render``'s; the surface
+supplies its hooks.  Every frame activates the columns progression (as the
+reference does even for EXPORT, ``_export_columns``), plans the exact dense
+giant layer once per view, and renders each column range of the tier its
+block names in one launch through ``zsplat_atlas`` in group-axis chunks of
+at most ``config.SPLAT_COLUMNS_GROUP_CAP`` groups
+(``_render_block_columns_surface``), combined by max-compositing
+(``_combine``).  EXPORT renders every particle once (each tier's own
+columns).  CHANGE and REFINE frames (the interactive surface) render the
+progression's ranges barrier-free with deferred timing; a REFINE frame
+continues the image and keeps the view's giant plan, and the giant layer
+is composited again after every frame (max is idempotent,
+``_giants_in_image``).  The photometric mass scale is unity
+(``_mass_scaled``).  Without the column progression
+(``config.INTERACTIVE_USE_PRESORTED`` off, a layout without column
+slicing, or ``backend="scatter"``) every frame renders the snapshot's flat
+arrays in ``bucket_size`` pieces through ``zsplat.zsplat_scatter``
+(``_render_block_surface``, the reference's scatter fallback, which keeps
+the truncated giants), with a device barrier after every piece of an
+interactive frame.
 """
 
 from __future__ import annotations
@@ -28,11 +31,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..drawreason import DrawReason
 from ..ops import splat, splat_atlas, splat_giant, zsplat, zsplat_atlas
-from ..performance import counters, signposter, traced
+from ..performance import signposter
 from .sph import SPHRenderer, _block_rows
-from .store import ParticleStore, bucket_size
+from .store import ParticleStore
 
 
 def _render_block_surface(pos_smooth, values, cell_ids, cell_table, matrix,
@@ -146,10 +148,20 @@ def _max_composite(a, b):
 
 
 class SurfaceSPHRenderer(SPHRenderer):
-    """Front-most surface renderer with a density cut."""
+    """Front-most surface renderer with a density cut: ``SPHRenderer``'s
+    frame loop with max-compositing, the density cut in every deposit and
+    the columns on EXPORT."""
 
     _buffer_name = "surface_values"  # (mass, raw quantity)
     _rho_percentiles_num_samples = 101
+    _combine = staticmethod(_max_composite)
+    # the scatter fallback is far slower than the column path, so a
+    # one-shot EXPORT builds it
+    _export_columns = True
+    # max semantics need no rescale, and compositing the giant layer again
+    # after every frame keeps it exact
+    _mass_scaled = False
+    _giants_in_image = True
 
     def __init__(self, store: ParticleStore, render_progression,
                  resolution: int, wrapping: bool = False,
@@ -164,7 +176,6 @@ class SurfaceSPHRenderer(SPHRenderer):
                 self._rho_percentiles_num_samples)
         lo, hi = self.get_density_cut_percentile_range()
         self._cut_val = 0.5 * (lo + hi)
-        self._surface_giant_layer = None
 
     # -- density cut API -----------------------------------------------------------
 
@@ -182,143 +193,42 @@ class SurfaceSPHRenderer(SPHRenderer):
                 * (self._rho_percentiles_num_samples - 1))
         return float(self._percentile_to_den_cut[i])
 
-    # -- render ----------------------------------------------------------------------
+    # -- the frame loop's hooks ------------------------------------------------
 
-    @traced("topsy.render")
-    def render(self, draw_reason=DrawReason.CHANGE):
-        if draw_reason == DrawReason.PRESENTATION_CHANGE:
-            return
-        # the columns progression serves EXPORT too: the scatter fallback is
-        # far slower than the column path, so a one-shot EXPORT builds it
-        columns = self._maybe_activate_columns(
-            DrawReason.CHANGE if draw_reason == DrawReason.EXPORT
-            else draw_reason)
-        prog = self._render_progression
-        if draw_reason != DrawReason.REFINE:
-            prog.select_sphere(-np.asarray(self.position_offset),
-                               self.scale * 1.2)
-            self._refresh_cell_table()
+    def _view(self) -> tuple:
+        """The view and the float32 density cut: every deposit takes the
+        cut."""
+        return super()._view() + (np.float32(self._density_cut_value()),)
 
-        matrix = self._matrix().astype(np.float32)
-        scale = np.float32(self.scale)
-        cut = np.float32(self._density_cut_value())
-        self._discard_pending_timing()
-        self._frame_clock.start()
-        first_block = draw_reason != DrawReason.REFINE or self._image is None
-        if columns:
-            self._prepare_surface_giants(matrix, scale, cut,
-                                         keep=not first_block)
-        else:
-            # the scatter fallback keeps the truncated hemispheres
-            self._giant_bucket = None
-            self._surface_giant_layer = None
-        prog.start_frame(draw_reason)
-        defer_timing = columns and draw_reason != DrawReason.EXPORT
-        sync_blocks = draw_reason != DrawReason.EXPORT and not defer_timing
-        self._dropped_splats = None
-        self.last_column_ranges = []
+    def _giant_layer(self, cand, values, matrix, scale, cut):
+        """The exact dense hemisphere layer of the candidates ``cand``."""
+        return _render_giant_layer_surface(
+            cand["pos"], values, cand["buckets"], cand["cell_ids"],
+            self._cell_table, matrix, scale, cut, resolution=self._resolution)
+
+    def _launch_block(self, matrix, scale, cut, start: int, count: int,
+                      bucket: int):
+        """Rows [start, start + count) of the store's flat arrays through
+        the scatter fallback (``_render_block_surface``): (image, None)."""
         store = self._store
-        while (block := prog.get_block(
-                self._render_timer.total_time_in_frame())) is not None:
-            starts, lens = block
-            for s, l in zip(starts, lens):
-                if l <= 0:
-                    continue
-                if columns:
-                    counters["particles_deposited"] += \
-                        self._block_particles(s, l)
-                    first_block = self._render_columns_surface(
-                        matrix, scale, cut, s, l, first_block)
-                    continue
-                counters["particles_deposited"] += l
-                bucket = bucket_size(l, store.n_pad)
-                for piece in range(0, l, bucket):
-                    with self._render_timer:
-                        im = _render_block_surface(
-                            store.flat_pos_smooth,
-                            store.flat_values_for(self._buffer_name),
-                            store.flat_cell_ids, self._cell_table, matrix,
-                            scale, cut, s + piece, min(bucket, l - piece),
-                            resolution=self._resolution, bucket=bucket)
-                        if first_block:
-                            self._image = im
-                            first_block = False
-                        else:
-                            self._image = _max_composite(self._image, im)
-                    if sync_blocks:
-                        self._render_timer.sync(self._image)
-            prog.end_block(self._render_timer.total_time_in_frame())
-        layer = self._surface_giant_layer
-        if layer is not None:
-            # max is idempotent: compositing the layer again after every
-            # REFINE continuation keeps the giants exact
-            with self._render_timer:
-                self._image = (layer if self._image is None
-                               else _max_composite(self._image, layer))
-        self._finish_frame(prog, record_timing=sync_blocks,
-                           defer_timing=defer_timing)
-        self.last_render_mass_scale = 1.0  # max semantics need no rescale
+        return _render_block_surface(
+            store.flat_pos_smooth, store.flat_values_for(self._buffer_name),
+            store.flat_cell_ids, self._cell_table, matrix, scale, cut, start,
+            count, resolution=self._resolution, bucket=bucket), None
 
-    def _prepare_surface_giants(self, matrix, scale, cut, keep: bool = False):
-        """Per-view giant planning: the bucket exclusion threshold of the
-        windowed column slices and the exact dense hemisphere layer;
-        ``keep`` (a REFINE continuation, same view) reuses both."""
-        if keep and self._giant_bucket is not None:
-            return
-        with signposter.use_interval("topsy.giants"):
-            store = self._store
-            num_levels = splat_atlas.default_pyramid(
-                self._resolution).num_levels
-            size, b_thresh = splat_giant.giant_plan(
-                store.giant_meta(), self._resolution, float(self.scale),
-                num_levels)
-            self._giant_bucket = b_thresh
-            if size == 0:
-                self._surface_giant_layer = None
-                return
-            with self._render_timer:
-                cand = store.giant_candidates(size)
-                self._surface_giant_layer = _render_giant_layer_surface(
-                    cand["pos"],
-                    store.giant_values_for(self._buffer_name, size),
-                    cand["buckets"], cand["cell_ids"], self._cell_table,
-                    matrix, scale, cut, resolution=self._resolution)
-
-    def _render_columns_surface(self, matrix, scale, cut, col0: int,
-                                ncols: int, first_block: bool) -> bool:
+    def _launch_columns(self, matrix, scale, cut, col0: int, ncols: int):
         """One column launch over columns [col0, col0 + ncols) of the flat
         presorted arrays of the tier the progression's ``last_block_tier``
-        names (a decimation mip, or the main layout), added to the frame's
-        image by max-compositing and to its dropped count (on the device).
-        Returns the updated ``first_block``."""
+        names (a decimation mip, or the main layout)
+        (``_render_block_columns_surface``): (image, dropped)."""
         tier = self._block_tier()
         culling = self._render_progression.get_selected_cell_mask() is not None
-        with self._render_timer:
-            im, dropped = _render_block_columns_surface(
-                tier.pos_smooth, tier.values_for(self._buffer_name),
-                tier.buckets, tier.cell_ids if culling else None,
-                self._cell_table if culling else None,
-                matrix, scale, cut, col0, int(self._giant_bucket),
-                resolution=self._resolution, width=ncols,
-                pad_group=tier.layout.pad_group)
-            self.last_column_ranges.append((col0, ncols))
-            self._dropped_splats = (dropped if self._dropped_splats is None
-                                    else self._dropped_splats + dropped)
-            if first_block:
-                self._image = im
-                first_block = False
-            else:
-                self._image = _max_composite(self._image, im)
-        return first_block
-
-    @property
-    def last_dropped_splats(self) -> int:
-        """Splats dropped by the bounded spill tiers, summed over the last
-        frame's column launches and their group-axis chunks (the
-        univariate interactive convention; with one launch per frame, the
-        reference's last-launch count)."""
-        d = self._dropped_splats
-        return 0 if d is None else int(d)
+        return _render_block_columns_surface(
+            tier.pos_smooth, tier.values_for(self._buffer_name),
+            tier.buckets, tier.cell_ids if culling else None,
+            self._cell_table if culling else None, matrix, scale, cut, col0,
+            int(self._giant_bucket), resolution=self._resolution,
+            width=ncols, pad_group=tier.layout.pad_group)
 
     def get_image(self) -> np.ndarray:
         """No photometric rescaling."""
