@@ -4,7 +4,8 @@
 
 Builds the port's hand-written kernels from this checkout (the CUDA feed
 kernel K1, the CUDA deposit kernel K2 and the CUDA z-buffer kernel K3, into
-build/torch_kernels/, beside the bilateral filter's kernel; the host
+build/torch_kernels/, beside the bilateral filter's and the spill tiers'
+kernels; the host
 presort's native library into build/torch_native/), holds the filter
 kernel against its plain version (phase F: the surface cell's 1024^2
 image at kernel size 41 and at the cap's 101 taps, with its time, its
@@ -15,9 +16,12 @@ renders the lazy policy's one-shot EXPORT (the per-frame-sorted block
 path, no presort) and whose store then presorts on the card.  Phase P times that device presort (and its decimation-mip
 tier) beside the host presort, checks the layout's invariants on the card
 and the mip tier as exactly its parent's first columns, and fails if the
-scene took the host fallback.  It holds K1 and K2 against their plain
-PyTorch versions on the card at the shapes the EXPORT path gives them
-(every piece of the renderer's piece loop), then K1 alone (phase K1o) at
+scene took the host fallback.  It holds K1, the spill tiers' kernel
+(phase K1S: every tier operand and the dropped count bit-equal, with its
+time, its plain version's, the host's enqueue of each and its bound) and
+K2 against their plain PyTorch versions on the card at the shapes the
+EXPORT path gives them (every piece of the renderer's piece loop), then
+K1 alone (phase K1o) at
 G = 189 (its lane-by-lane path) and on lanes with NaN, infinite, zero and
 negative h and NaN or infinite positions, drives the univariate EXPORT
 path (warm-up and timed frames, the SPH image and the presentation image)
@@ -26,7 +30,8 @@ drives bench.py's own path, ``TestDataDeviceLoader`` through a second
 Visualizer: the time to its first EXPORT image by the lazy policy (the
 sorted block path) and with the presort built first, its EXPORT frames and
 the image against the scatter truth.  On the scene's Visualizer it drives the
-interactive path (phase I): K1 and K2 against their plain versions, each
+interactive path (phase I): K1, the spill kernel (at the column
+launches' budgets) and K2 against their plain versions, each
 call timed alone beside its plain version and its bound, on column slices
 of the main layout (one quantum wide, three, the REFINE launch above the
 mip's columns, the full width) and on the mip tier's CHANGE launch; seven
@@ -342,6 +347,93 @@ def k2_calls(feed_out, G, atlas_rows, atlas_cols):
     stragglers_kw["window_rows"] = splat_atlas.PRESORTED_WINDOW_ROWS
     return {"main": main_kw, "tier2": tier2_kw, "tier3": tier3_kw,
             "tier3_stragglers": stragglers_kw}, dropped
+
+
+#: the spill kernel's checked calls, {call: {"groups", "G", "C",
+#: "k_groups", "t3", "dropped", "ms", "plain_ms", "host_us",
+#: "plain_host_us", "bound_ms"}}
+SPILL_CALLS: dict = {}
+
+
+def spill_bytes(s, C: int) -> int:
+    """Bytes the spill kernel moves for the scalars ``s``: the counts
+    read; the gathered slots' (3 + C) rows read and tier 2's written, with
+    its (w0, zeros, flags); tier 3's entries gathered again and written
+    with their four rows; its scratch (gathered groups, a byte a gathered
+    slot, tier 3's slots) written and read once each."""
+    cap = s.k_groups * s.G
+    return (4 * (s.n_groups + 2 * (3 + C) * cap + 3 * s.n_sg
+                 + (3 + C) * s.t3 + (3 + C + 4) * s.t3)
+            + 2 * (4 * s.k_groups + cap + 4 * s.t3) + 8)
+
+
+def check_spill(key, feed_out, G, atlas_rows, atlas_cols, group_cap=None,
+                t3_cap=None):
+    """Phase K1S: the spill kernel (``csrc/spill_tiers.cu``) against
+    ``spill_tiers_plain`` on the operands ``deposit_calls`` hands it from
+    the K1 output ``feed_out``, at the budgets given: every tier operand
+    (floats bit for bit, inactive entries included) and the dropped count
+    equal.  Times both (CUDA events), the host's enqueue of each, and the
+    kernel's bound by bytes, into ``SPILL_CALLS[key]``."""
+    import torch
+    from topsy_tpu_torch.ops import splat_atlas
+    ay, ax, ih, cfit, cspill, *_, nspill = feed_out
+    C = cfit.shape[0]
+    args = (ay.reshape(-1), ax.reshape(-1), ih.reshape(-1),
+            cspill.reshape(C, -1), nspill)
+    kw = dict(C=C, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols,
+              window_rows=splat_atlas.PRESORTED_WINDOW_ROWS,
+              group_cap=group_cap, t3_cap=t3_cap)
+
+    def kernel():
+        return splat_atlas.spill_tiers_cuda(*args, **kw)
+
+    def plain():
+        return splat_atlas.spill_tiers_plain(*args, **kw)
+
+    def bits(t):
+        t = t.contiguous()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    for tier, g, w in (("tier2", got[0], want[0]), ("tier3", got[1], want[1])):
+        check(g.keys() == w.keys(), f"spill {key} {tier}: keys differ")
+        for name, wv in w.items():
+            gv = g[name]
+            same = (gv == wv if not isinstance(wv, torch.Tensor) else
+                    gv.dtype == wv.dtype and gv.shape == wv.shape
+                    and torch.equal(bits(gv), bits(wv)))
+            check(same, f"spill {key} {tier} {name}: the kernel differs "
+                  "from spill_tiers_plain")
+    check(got[2].dtype == torch.int64 and torch.equal(got[2], want[2]),
+          f"spill {key}: dropped {int(got[2])} != plain {int(want[2])}")
+    ms = timed_ms(kernel, 20)
+    plain_ms = timed_ms(plain, 3)
+    host = {}
+    for name, fn, reps in (("host_us", kernel, 20),
+                           ("plain_host_us", plain, 5)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    s, _, _ = splat_atlas._spill_plan(
+        nspill.shape[0], G, C, atlas_rows, atlas_cols, kw["window_rows"],
+        *splat_atlas._spill_budgets(nspill.shape[0], G, group_cap, t3_cap))
+    bound_ms = spill_bytes(s, C) / HBM_BYTES_PER_S * 1e3
+    SPILL_CALLS[key] = {"groups": s.n_groups, "G": G, "C": C,
+                        "k_groups": s.k_groups, "t3": s.t3,
+                        "dropped": int(want[2]), "ms": ms,
+                        "plain_ms": plain_ms, **host, "bound_ms": bound_ms}
+    log(f"phase K1S {key}: {s.n_groups} groups of {G}, C {C}, budgets "
+        f"{s.k_groups} / {s.t3}: tier operands and dropped "
+        f"({int(want[2])}) bit-equal to spill_tiers_plain; kernel "
+        f"{ms:.4f} ms (CUDA events, 20 calls), host {host['host_us']:.1f} "
+        f"us a call; plain {plain_ms:.3f} ms, host "
+        f"{host['plain_host_us']:.1f} us a call; bound {bound_ms:.5f} ms "
+        f"(bytes), {bound_ms / ms:.1%} of it")
 
 
 def surface_chunk_calls(vis, sl, cut, gb, **extra):
@@ -1363,6 +1455,9 @@ def phase_interactive(vis):
             out_k = splat_feed.splat_feed_cuda(*fargs, **fkw)
             feed_err = max(feed_err, compare_feed(
                 label, out_k, splat_feed.splat_feed_plain(*fargs, **fkw)))
+            check_spill(f"interactive_{key}", out_k, width, atlas_rows,
+                        atlas_cols, group_cap=kw["spill_group_cap"],
+                        t3_cap=kw["spill_t3_cap"])
             main_kw, t2_kw, t3_kw, dropped = splat_atlas.deposit_calls(
                 out_k, C=2, G=width, atlas_rows=atlas_rows,
                 atlas_cols=atlas_cols, **kw)
@@ -1682,7 +1777,8 @@ def phase_catmull(vis, export_image, card):
 COUNTERS = {"splat_feed": "k1_launches", "accumulate_groups": "k2_launches",
             "accumulate_max_groups": "k3_launches",
             "zdeposit_plan": "k3_plan_launches",
-            "bilateral_filter": "filter_launches"}
+            "bilateral_filter": "filter_launches",
+            "spill_tiers": "spill_launches"}
 
 
 def reset_counts():
@@ -3655,7 +3751,8 @@ def main() -> int:
 
     # ---- phase 2: build the kernels from this checkout ---------------------
     t0 = time.perf_counter()
-    sources = ("splat_feed", "splat_accum", "zsplat_accum", "bilateral")
+    sources = ("splat_feed", "splat_accum", "zsplat_accum", "bilateral",
+               "spill_tiers")
     for name in sources:
         # built from this checkout's sources, never an earlier build's
         (cuda_build.BUILD_DIR / f"lib{name}.so").unlink(missing_ok=True)
@@ -3670,6 +3767,8 @@ def main() -> int:
         log(f"ptxas K3 {name}: {res}")
     for name, res in ptxas_resources(cuda_build.build_logs["bilateral"]):
         log(f"ptxas filter {name}: {res}")
+    for name, res in ptxas_resources(cuda_build.build_logs["spill_tiers"]):
+        log(f"ptxas spill {name}: {res}")
 
     # ---- phase F: the bilateral filter kernel against its plain version ---
     fentry = phase_filter()
@@ -3722,6 +3821,9 @@ def main() -> int:
             f"kind [inactive, tiny, poly, mixed, masked] = {kinds}; spilled "
             f"particles {int(out_k[9].sum().item())}; {t_ms:.3f} ms (plain "
             f"{t_plain:.3f} ms; {k1_note(f'export_piece{i}')})")
+
+        # the spill tiers' operands, kernel against plain version
+        check_spill(f"export_piece{i}", out_k, G, atlas_rows, atlas_cols)
 
         # K2 in the three call shapes that follow this feed
         calls, dropped = k2_calls(out_k, G, atlas_rows, atlas_cols)
@@ -4274,6 +4376,17 @@ def main() -> int:
          "bound_ms_by_shape": {k: v[0] for k, v in k3_bound.items()}},
         {**fentry, "launches": sum(by_path("bilateral_filter").values()),
          "launches_by_path": by_path("bilateral_filter")},
+        {"name": "spill_tiers", "route": "cuda",
+         "source": "topsy_tpu_torch/csrc/spill_tiers.cu", "replaces": None,
+         "launches": sum(by_path("spill_tiers").values()),
+         "launches_by_path": by_path("spill_tiers"),
+         "max_abs_err": 0.0,
+         "ms": SPILL_CALLS["export_piece0"]["ms"],
+         "plain_ms": SPILL_CALLS["export_piece0"]["plain_ms"],
+         "bound_ms": SPILL_CALLS["export_piece0"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "host_us": SPILL_CALLS["export_piece0"]["host_us"],
+         "by_call": SPILL_CALLS},
     ]
     # K2 on the block paths, one entry per path: its launches in the path's
     # run, its calls held and the first call of each shape timed

@@ -6,7 +6,8 @@ scene of tests/test_splat_fields.py at RES 256.
 Bounds are the reference's own cross-engine bounds
 (tests/test_splat_fields.py:75-78): image sum rel 1e-3, max pixel
 difference <= 1% of the image maximum, correlation > 0.9999, and equal
-``dropped`` counts."""
+``dropped`` counts.  The ``cuda`` cases (skipped without a GPU) run the
+port on CUDA tensors, so through the spill kernel and K2."""
 
 import os
 
@@ -28,6 +29,7 @@ from topsy_tpu_torch import convert
 from topsy_tpu_torch.ops import splat as p_splat
 from topsy_tpu_torch.ops import splat_atlas as p_atlas
 from topsy_tpu_torch.ops import splat_giant as p_giant
+from topsy_tpu_torch.performance import counters
 
 # one process's share of the cores when pytest-xdist runs several workers
 # (torch's default, every core in each process, oversubscribes them)
@@ -254,3 +256,56 @@ def test_column_slice_matches_reference(scene):
         r_f, r_v, jnp.asarray(m), r_gb)
     assert sl[0][0].shape[1] == 384
     _assert_cross_engine(im_p.numpy(), int(d_p), np.asarray(im_r), int(d_r))
+
+
+def _on_card(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_on_card(v) for v in x)
+    return x.cuda()
+
+
+CARD_CASES = {
+    # id: (rotation, column slice (col0, width) or None, budgets)
+    "rot0": (0.0, None, {}),
+    "rot35": (35.0, None, {}),
+    "budget8": (35.0, None, dict(spill_group_cap=8)),
+    "column384": (35.0, (128, 384),
+                  dict(spill_group_cap=512, spill_t3_cap=4096)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_card_spill_kernel_matches_reference(scene, case):
+    """``splat_atlas_fields`` on CUDA tensors, so that its spill tiers'
+    operands come from the kernel (csrc/spill_tiers.cu) and its deposits
+    from K2, against the reference's on the CPU: the cross-engine bounds
+    and equal ``dropped``, also with the spill budget cut to 8 groups,
+    where both drop splats, and on a column slice under the interactive
+    launch's budgets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    _, _, _, st, ref_in = scene
+    rot_deg, column, budgets = CARD_CASES[case]
+    m = _matrix(rot_deg)
+    fields, values, gb = st["fields"], st["values_cm"], st["group_buckets"]
+    if column is not None:
+        fields, values, gb, _ = p_atlas.slice_column_fields(
+            fields, values, gb, None, *column, merge=False)
+    before = counters["spill_launches"]
+    im_p, d_p = p_atlas.splat_atlas_fields(
+        _on_card(fields), _on_card(values), m, RES, SCALE, _on_card(gb),
+        **budgets)
+    assert counters["spill_launches"] == before + 1
+    if column is None:
+        im_r, d_r = _ref(ref_in, m, **budgets)
+    else:
+        r_f, r_v, r_gb, _ = r_atlas.slice_column_fields(
+            *ref_in, None, jnp.int32(column[0]), column[1], merge=False)
+        im_r, d_r = jax.jit(lambda f, v, mm, k: r_atlas.splat_atlas_fields(
+            f, v, mm, RES, SCALE, k, engine="pallas", **budgets))(
+            r_f, r_v, jnp.asarray(m), r_gb)
+        im_r, d_r = np.asarray(im_r), int(d_r)
+    if budgets.get("spill_group_cap") == 8:
+        assert d_r > 0
+    _assert_cross_engine(im_p.cpu().numpy(), int(d_p), im_r, d_r)

@@ -12,10 +12,13 @@ then a stable per-frame sort on a (row band, tiny, column) key);
 kernel (``splat_feed``).  The deposit (``splat_accum``) accumulates each
 group into its window, and the spill tiers re-run the deposit for particles
 that did not fit: tier 2 over full-width windows in groups of G/8 (at
-least 16), tier 3 as one-particle groups.  Both paths implement the
-reference's ``engine="pallas"`` semantics (column anchors aligned to
-``COL_ALIGN``, a ``PROFILE_COLS`` span from the exact base, size classes,
-``group_flags``), which K2 and its plain version implement.  The
+least 16), tier 3 as one-particle groups.  ``spill_tiers`` builds their
+operands with a hand-written CUDA kernel (``csrc/spill_tiers.cu``) on CUDA
+tensors and with ``spill_tiers_plain`` otherwise.  Both paths
+implement the reference's ``engine="pallas"`` semantics (column anchors
+aligned to ``COL_ALIGN``, a ``PROFILE_COLS`` span from the exact base,
+size classes, ``group_flags``), which K2 and its plain version implement.
+The
 reference's ``"scan"`` engine is its CPU stand-in; here K2's plain version
 plays that part, so it is not ported, and tier 3 always runs as K2's
 one-particle call (the reference's small launches run it in that engine).
@@ -28,12 +31,14 @@ supports (CUDA C++ on the card, its plain version on the CPU).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from .. import config
+from ..performance import counters, traced
 from . import splat_accum, splat_feed, splat_giant
 from . import kernels
 from .splat import (H_MAX, PyramidSpec, default_pyramid, exp2_int,
@@ -96,27 +101,9 @@ def _topk_desc_stable(values: torch.Tensor, k: int) -> torch.Tensor:
     return order[:k]
 
 
-def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
-                n_spill, *, C, G, atlas_rows, atlas_cols, window_rows,
-                group_cap=None, t3_cap=None):
-    """The spill tiers' deposit operands (particles too sparse for their
-    group's window).
-
-    ay_s/ax_s/inv_h_s: (n_pad,); coef_s: (C, n_pad); spilled: (n_pad,)
-    bool; per_group_spill: (n_groups,) int; n_spill: 0-dim int tensor.
-    Returns (tier2, tier3, dropped): the keyword arguments of the two
-    ``accumulate_groups`` calls (tier 2: groups of G/8 over full-width
-    windows; tier 3: one-particle groups) and the dropped count as a 0-dim
-    int tensor.  Compaction is group-granular: the ``k_groups`` groups with
-    the most spills are gathered in layout order.  ``group_cap`` and
-    ``t3_cap`` override the budgets of tier 2 (``SPLAT_SPILL_GROUP_CAP``
-    groups) and tier 3 (``T3_CAP`` stragglers); the interactive column
-    launch raises both.  The tiers always run
-    (the reference skips them when nothing spilled; then every gathered
-    group here is inactive and ``dropped`` is 0, so the result is the same),
-    which keeps the frame free of host synchronisation."""
-    dev = ay_s.device
-    n_groups = per_group_spill.shape[0]
+def _spill_budgets(n_groups: int, G: int, group_cap, t3_cap):
+    """(G_SPILL, k_groups, T3) of the spill tiers over n_groups groups of
+    G: tier 2's group width and gathered groups, tier 3's budget."""
     G_SPILL = max(16, G // 8)
     cap = config.SPLAT_SPILL_GROUP_CAP if group_cap is None else group_cap
     k_groups = min(n_groups, cap)
@@ -124,7 +111,20 @@ def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
     # rounding decides which groups are gathered, hence ``dropped``
     k_groups = max(1, (k_groups * (G // G_SPILL)) // SUBGROUPS) \
         * SUBGROUPS * G_SPILL // G
+    T3 = min(T3_CAP if t3_cap is None else t3_cap, k_groups * G)
+    return G_SPILL, k_groups, T3
+
+
+def spill_tiers_plain(ay_s, ax_s, inv_h_s, coef_s, per_group_spill, *, C,
+                      G, atlas_rows, atlas_cols, window_rows, group_cap=None,
+                      t3_cap=None):
+    """``spill_tiers`` in plain PyTorch (the CPU's, and the oracle of the
+    kernel's tests)."""
+    dev = ay_s.device
+    n_groups = per_group_spill.shape[0]
+    G_SPILL, k_groups, T3 = _spill_budgets(n_groups, G, group_cap, t3_cap)
     spill_cap = k_groups * G
+    spilled = torch.abs(coef_s).sum(dim=0) > 0.0
 
     top_idx = torch.sort(_topk_desc_stable(per_group_spill, k_groups)).values
 
@@ -167,7 +167,6 @@ def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
                  window_cols=atlas_cols, **common)
 
     # ---- tier 3: one-particle groups (fit by construction) ---------------
-    T3 = min(T3_CAP if t3_cap is None else t3_cap, spill_cap)
     ar = torch.arange(spill_cap, device=dev)
     # the first T3 stragglers in gathered order, then non-stragglers
     idx3 = torch.sort(torch.where(straggler, ar, ar + spill_cap)).indices[:T3]
@@ -194,8 +193,162 @@ def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
                  coef_g=t_coef.reshape(C, T3, 1).contiguous(), w0=tw0,
                  c0=tc0, ce=tce, flags=tflags, group=1,
                  window_cols=WINDOW_COLS, **common)
-    not_gathered = n_spill - valid.sum()
+    not_gathered = per_group_spill.sum() - valid.sum()
     return tier2, tier3, not_gathered + torch.clamp(n3 - T3, min=0)
+
+
+#: the widest group ``spill_tiers_cuda`` takes (MAX_G in
+#: csrc/spill_tiers.cu: its histogram of counts lives in shared memory)
+SPILL_KERNEL_MAX_G = 8192
+#: channels ``spill_tiers_cuda`` takes (MAX_C in csrc/spill_tiers.cu)
+SPILL_KERNEL_MAX_C = 4
+
+
+class _SpillScalars(ctypes.Structure):
+    """The kernel's by-value parameters (``SpillScalars`` in
+    ``csrc/spill_tiers.cu``, field for field)."""
+    _fields_ = [*[(n, ctypes.c_longlong) for n in (
+                    "n_groups", "f_t3", "i_t3", "i_gidx", "i_slots",
+                    "i_order")],
+                *[(n, ctypes.c_int) for n in (
+                    "G", "C", "g_spill", "k_groups", "n_sg", "t3",
+                    "window_rows", "w0_top", "c0_top", "band", "col_align",
+                    "ce_span")],
+                *[(n, ctypes.c_float) for n in ("foot", "big_th",
+                                                "row_pad")]]
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_spill():
+    """The kernel's C entry point, bound once."""
+    from . import cuda_build
+    fn = cuda_build.library("spill_tiers").topsy_spill_tiers
+    fn.argtypes = [ctypes.c_void_p] * 10
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _quad(n: int) -> int:
+    """n rounded up to 4 elements: each output block starts 16-byte
+    aligned, as K2's vector loads want."""
+    return -(-n // 4) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def _spill_plan(n_groups: int, G: int, C: int, atlas_rows: int,
+                atlas_cols: int, window_rows: int, G_SPILL: int,
+                k_groups: int, T3: int):
+    """(scalars, float outputs, int32 outputs) of a ``spill_tiers_cuda``
+    call; made once per (piece shape, budgets as ``_spill_budgets``
+    resolves them)."""
+    spill_cap = k_groups * G
+    if not 1 <= G <= SPILL_KERNEL_MAX_G:
+        raise ValueError(f"group width {G} outside [1, "
+                         f"{SPILL_KERNEL_MAX_G}]")
+    if not 1 <= C <= SPILL_KERNEL_MAX_C:
+        raise ValueError(f"the spill kernel takes 1 to "
+                         f"{SPILL_KERNEL_MAX_C} channels, got {C}")
+    if k_groups > n_groups or spill_cap % G_SPILL:
+        raise ValueError(f"{n_groups} groups of {G}: the spill budget of "
+                         f"{k_groups} groups does not fit them or tier 2's "
+                         f"groups of {G_SPILL}")
+    n_sg = spill_cap // G_SPILL
+    s = _SpillScalars()
+    s.n_groups = n_groups
+    s.f_t3 = _quad((3 + C) * spill_cap)
+    s.i_t3 = _quad(3 * n_sg)
+    s.i_gidx = s.i_t3 + _quad(4 * T3)
+    s.i_slots = s.i_gidx + _quad(k_groups)
+    s.i_order = s.i_slots + _quad(-(-spill_cap // 4))
+    s.G, s.C, s.g_spill, s.k_groups, s.n_sg, s.t3 = (G, C, G_SPILL, k_groups,
+                                                     n_sg, T3)
+    s.window_rows = window_rows
+    s.w0_top = ((atlas_rows - window_rows) // BAND) * BAND
+    s.c0_top = atlas_cols - WINDOW_COLS
+    s.band, s.col_align = BAND, COL_ALIGN
+    s.ce_span = WINDOW_COLS - PROFILE_COLS
+    s.foot = FOOT
+    s.big_th = float(np.float32((1.0 / H_MAX) * (1.0 - 1e-6)))
+    s.row_pad = float(ROW_PAD)
+    return s, s.f_t3 + (3 + C) * T3, s.i_order + T3
+
+
+def spill_tiers_cuda(ay_s, ax_s, inv_h_s, coef_s, per_group_spill, *, C, G,
+                     atlas_rows, atlas_cols, window_rows, group_cap=None,
+                     t3_cap=None):
+    """``spill_tiers`` by the kernel (``csrc/spill_tiers.cu``), launched on
+    the current stream: ay_s / ax_s / inv_h_s (n_groups * G,) and coef_s
+    (C, n_groups * G) contiguous float32, per_group_spill contiguous
+    (n_groups,) int32 counts in [0, G].  Every output is a view of three
+    new buffers (float32, int32 and the int64 dropped count)."""
+    n_groups = per_group_spill.shape[0]
+    n = n_groups * G
+    dev = ay_s.device
+    for t, name in ((ay_s, "ay_s"), (ax_s, "ax_s"), (inv_h_s, "inv_h_s")):
+        splat_accum._check(t, name, torch.float32, (n,), dev)
+    splat_accum._check(coef_s, "coef_s", torch.float32, (C, n), dev)
+    splat_accum._check(per_group_spill, "per_group_spill", torch.int32,
+                       (n_groups,), dev)
+    s, n_f, n_i = _spill_plan(n_groups, G, C, atlas_rows, atlas_cols,
+                              window_rows, *_spill_budgets(
+                                  n_groups, G, group_cap, t3_cap))
+    out_f = torch.empty(n_f, dtype=torch.float32, device=dev)
+    out_i = torch.empty(n_i, dtype=torch.int32, device=dev)
+    out_l = torch.empty(2, dtype=torch.int64, device=dev)
+    err = _bind_spill()(
+        ctypes.byref(s), ay_s.data_ptr(), ax_s.data_ptr(),
+        inv_h_s.data_ptr(), coef_s.data_ptr(), per_group_spill.data_ptr(),
+        out_f.data_ptr(), out_i.data_ptr(), out_l.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"spill_tiers kernel launch failed: cudaError "
+                           f"{err}")
+    counters["spill_launches"] += 1
+    n_sg, G_SPILL, T3 = s.n_sg, s.g_spill, s.t3
+    t2 = out_f[:(3 + C) * n_sg * G_SPILL].view(3 + C, n_sg, G_SPILL)
+    t3 = out_f[s.f_t3:].view(3 + C, T3, 1)
+    w0, zeros, flags = out_i[:3 * n_sg].view(3, n_sg).unbind(0)
+    tw0, tc0, tce, tflags = out_i[s.i_t3:s.i_t3 + 4 * T3].view(
+        4, T3).unbind(0)
+    common = dict(atlas_rows=atlas_rows, atlas_cols=atlas_cols, C=C,
+                  window_rows=window_rows)
+    ay2, ax2, ih2 = t2[:3].unbind(0)
+    ay3, ax3, ih3 = t3[:3].unbind(0)
+    tier2 = dict(ay_g=ay2, ax_g=ax2, ih_g=ih2, coef_g=t2[3:], w0=w0,
+                 c0=zeros, ce=zeros, flags=flags, group=G_SPILL,
+                 window_cols=atlas_cols, **common)
+    tier3 = dict(ay_g=ay3, ax_g=ax3, ih_g=ih3, coef_g=t3[3:], w0=tw0,
+                 c0=tc0, ce=tce, flags=tflags, group=1,
+                 window_cols=WINDOW_COLS, **common)
+    return tier2, tier3, out_l[0]
+
+
+@traced("topsy.spill")
+def spill_tiers(ay_s, ax_s, inv_h_s, coef_s, per_group_spill, *, C, G,
+                atlas_rows, atlas_cols, window_rows, group_cap=None,
+                t3_cap=None):
+    """The spill tiers' deposit operands (particles too sparse for their
+    group's window): the kernel (``csrc/spill_tiers.cu``) for CUDA
+    tensors, ``spill_tiers_plain`` otherwise.
+
+    ay_s/ax_s/inv_h_s: (n_pad,); coef_s: (C, n_pad) channel-major, zero
+    where a particle did not spill (a particle spilled where the sum of its
+    coefficients' absolute values is positive); per_group_spill:
+    (n_groups,) int32 spill counts.  Returns (tier2, tier3, dropped): the keyword arguments
+    of the two ``accumulate_groups`` calls (tier 2: groups of G/8 over
+    full-width windows; tier 3: one-particle groups) and the dropped count
+    as a 0-dim int64 tensor.  Compaction is group-granular: the
+    ``k_groups`` groups with the most spills are gathered in layout order.
+    ``group_cap`` and ``t3_cap`` override the budgets of tier 2
+    (``SPLAT_SPILL_GROUP_CAP`` groups) and tier 3 (``T3_CAP`` stragglers);
+    the interactive column launch raises both.  The tiers always run (the
+    reference skips them when nothing spilled; then every gathered group
+    here is inactive and ``dropped`` is 0, so the result is the same),
+    which keeps the frame free of host synchronisation."""
+    kw = dict(C=C, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols,
+              window_rows=window_rows, group_cap=group_cap, t3_cap=t3_cap)
+    run = spill_tiers_cuda if ay_s.is_cuda else spill_tiers_plain
+    return run(ay_s, ax_s, inv_h_s, coef_s, per_group_spill, **kw)
 
 
 def sorted_group_size(n: int) -> int:
@@ -348,10 +501,12 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
         return atlas
 
     spilled = (~fits) & (torch.abs(coef_s).sum(dim=1) > 0.0)
-    per_group_spill = spilled.reshape(n_groups, G).sum(dim=1)
+    per_group_spill = spilled.reshape(n_groups, G).sum(dim=1,
+                                                       dtype=torch.int32)
     tier2, tier3, dropped = spill_tiers(
-        ay_s, ax_s, inv_h_s, coef_s.t(), spilled, per_group_spill,
-        per_group_spill.sum(), C=C, G=G, atlas_rows=atlas_rows,
+        ay_s, ax_s, inv_h_s,
+        torch.where(spilled[:, None], coef_s, 0.0).t().contiguous(),
+        per_group_spill, C=C, G=G, atlas_rows=atlas_rows,
         atlas_cols=atlas_cols, window_rows=window_rows)
     splat_accum.accumulate_groups(**tier2, atlas0=atlas)
     splat_accum.accumulate_groups(**tier3, atlas0=atlas)
@@ -450,13 +605,11 @@ def deposit_calls(feed_out, *, C, G, atlas_rows, atlas_cols,
     main = dict(ay_g=ay, ax_g=ax, ih_g=ih, coef_g=cfit, w0=w0, c0=c0, ce=ce,
                 flags=flags, atlas_rows=atlas_rows, atlas_cols=atlas_cols,
                 C=C, group=G, window_rows=window_rows)
-    chans = cspill.reshape(C, -1)
-    spilled = torch.abs(chans).sum(dim=0) > 0.0
     tier2, tier3, dropped = spill_tiers(
-        ay.reshape(-1), ax.reshape(-1), ih.reshape(-1), chans, spilled,
-        nspill, nspill.sum(), C=C, G=G, atlas_rows=atlas_rows,
-        atlas_cols=atlas_cols, window_rows=window_rows,
-        group_cap=spill_group_cap, t3_cap=spill_t3_cap)
+        ay.reshape(-1), ax.reshape(-1), ih.reshape(-1), cspill.reshape(C, -1),
+        nspill, C=C, G=G, atlas_rows=atlas_rows, atlas_cols=atlas_cols,
+        window_rows=window_rows, group_cap=spill_group_cap,
+        t3_cap=spill_t3_cap)
     return main, tier2, tier3, dropped
 
 

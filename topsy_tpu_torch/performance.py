@@ -48,8 +48,9 @@ DEFAULT_LOG_DIR = os.path.join("build", "topsy_tpu_torch_trace")
 MAX_INTERVALS = 1 << 18
 
 #: always-on counts: ``k1_launches``, ``k2_launches``, ``k3_launches``,
-#: ``k3_plan_launches`` and ``filter_launches`` (CUDA launches, made only
-#: where a kernel is launched), ``particles_deposited`` (the particles of
+#: ``k3_plan_launches``, ``filter_launches`` and ``spill_launches`` (CUDA
+#: launches, made only where a kernel is launched; ``spill_launches`` once
+#: a call of the spill tiers' three launches), ``particles_deposited`` (the particles of
 #: the blocks the progression hands a renderer, summed on the host),
 #: ``present_device_frames`` / ``present_host_frames`` (presented frames
 #: made on the renderer's device / by the host's float path) and
